@@ -1,9 +1,11 @@
-"""Cone-cull kernel (round-4 hot path) correctness tests.
+"""Phase A and the feature-plane entry points of the leaf-cull intersector.
 
-Strategy per SURVEY.md §4: brute force is ground truth. The cone tests are
-conservative culls, so the kernel must agree with nearest_hit_brute
-exactly (modulo measure-zero graze/tie flips, like the other kernels).
-Pallas runs in interpret mode on the CPU test platform.
+Phase A (``candidate_rows`` from the packed feature planes) is a
+conservative cull: every leaf holding a brute-force hit must be in its
+subpacket's row. The feature-plane queries (``nearest_hit_feats``, the
+call bench.py times) must return brute force's hits in flat stream order,
+with both phase-B implementations. Strategy per SURVEY.md §4: brute force
+is ground truth.
 """
 
 import jax
@@ -11,24 +13,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tracer.core.types import Ray
 from tracer.bvh.builder import build_bvh
-from tracer.intersect.brute import nearest_hit_brute
-from tracer.kernels.conecull import (build_cone_tables, cone_candidates,
-                                     nearest_hit_conecull,
-                                     nearest_hit_conecull_t,
-                                     compact_lanes, _lane_cumsum,
-                                     CONE_FEAT)
-from tracer.kernels.leafcull import pack_ray_features
-from tracer.scene.scene import benchmark_scene
 from tracer.core.sort import prep_rays_bucketed
+from tracer.core.types import Ray
+from tracer.intersect.brute import nearest_hit_brute
+from tracer.kernels.leafcull import (bounds_from_feats, build_cull_tables,
+                                     candidate_rows, nearest_hit_feats,
+                                     nearest_hit_leafcull_t,
+                                     pack_ray_features, prep_feats_bucketed)
+from tracer.scene.scene import benchmark_scene
+
+IMPLS = ["interpret", "xla"]
 
 
-def _scene_bvh(n=600, seed=3, world=60.0, leaf_size=8):
+def _scene_tables(n=600, seed=3, world=60.0, leaf_size=8):
     scene = benchmark_scene(jax.random.PRNGKey(seed), n, world_size=world)
     bvh = build_bvh(np.asarray(scene.centers), np.asarray(scene.radii),
                     leaf_size=leaf_size)
-    return scene, bvh
+    return scene, build_cull_tables(scene, bvh)
 
 
 def _origin_rays(b, seed=0):
@@ -38,240 +40,83 @@ def _origin_rays(b, seed=0):
     return Ray(origin=jnp.zeros((b, 3), jnp.float32), direction=jnp.asarray(d))
 
 
-# ---------------------------------------------------------------------------
-# compaction primitive (the kernel's core trick), via a tiny test kernel
-# ---------------------------------------------------------------------------
-
-def _run_compact(mask_np, payload_np):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(m_ref, p_ref, o_ref, c_ref):
-        cmp, cnt = compact_lanes(p_ref[:], m_ref[:] != 0)
-        o_ref[:] = cmp
-        c_ref[:] = jnp.full((1, 128), cnt, jnp.int32)
-
-    out, cnt = pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct(payload_np.shape, jnp.float32),
-                   jax.ShapeDtypeStruct((1, 128), jnp.int32)),
-        interpret=True,
-    )(jnp.asarray(mask_np, jnp.int32).reshape(1, -1),
-      jnp.asarray(payload_np, jnp.float32))
-    return np.asarray(out), int(np.asarray(cnt)[0, 0])
-
-
-def test_compact_lanes_random():
-    rng = np.random.default_rng(1)
-    for frac in (0.0, 0.1, 0.5, 0.9, 1.0):
-        mask = rng.random(128) < frac
-        payload = rng.normal(size=(8, 128)).astype(np.float32)
-        out, cnt = _run_compact(mask, payload)
-        assert cnt == mask.sum()
-        np.testing.assert_array_equal(out[:, :cnt], payload[:, mask])
-
-
-def test_lane_cumsum():
-    from jax.experimental import pallas as pl
-
-    def kernel(x_ref, o_ref):
-        o_ref[:] = _lane_cumsum(x_ref[:])
-
-    x = np.random.default_rng(0).integers(0, 3, (1, 128)).astype(np.int32)
-    out = pl.pallas_call(
-        kernel, out_shape=jax.ShapeDtypeStruct((1, 128), jnp.int32),
-        interpret=True)(jnp.asarray(x))
-    np.testing.assert_array_equal(np.asarray(out)[0], np.cumsum(x[0]))
-
-
-# ---------------------------------------------------------------------------
-# phase A conservativeness: every brute-force hit leaf is in the rows
-# ---------------------------------------------------------------------------
-
-def test_cone_candidates_cover_brute_hits():
-    scene, bvh = _scene_bvh(n=500, leaf_size=8)
-    tables = build_cone_tables(scene, bvh)
-    cull = tables.cull
+@pytest.mark.parametrize("max_candidates", [119, 7])
+def test_cone_candidates_cover_brute_hits(max_candidates):
+    # Leaf rows (generous budget) and group rows (budget 7 forces some).
+    scene, tables = _scene_tables(n=500)
     rays = _origin_rays(512)
-    padded, dest = prep_rays_bucketed(rays, 64, cell_bits=4)
-    feats, g, pad = pack_ray_features(padded.origin, padded.direction, 8, 64)
-    rows, cones, overflow = cone_candidates(feats, tables, 64, 119,
-                                            interpret=True)
+    padded, _ = prep_rays_bucketed(rays, 64, cell_bits=4)
+    feats = pack_ray_features(padded.origin, padded.direction, 64)
+    rows, overflow = candidate_rows(bounds_from_feats(feats), tables, 64,
+                                    max_candidates)
     rows = np.asarray(rows)
     assert not bool(overflow)
+    if max_candidates == 7:
+        assert (rows[:, 0] < 0).any(), "expected group-mode rows"
 
-    rec = nearest_hit_brute(padded, scene)
-    hit_id = np.asarray(rec.index)
-    # leaf (slot-order) of each sphere
-    slot_of = np.full(scene.centers.shape[0], -1, np.int64)
-    s2s = np.asarray(cull.slot_to_sphere)
-    for slot, sph in enumerate(s2s):
-        if sph >= 0 and slot_of[sph] < 0:
-            slot_of[sph] = slot
-    lpc = cull.leaves_per_chunk
-    lpg = cull.leaves_per_group
+    hit_id = np.asarray(nearest_hit_brute(padded, scene).index)
+    slot_of = {}
+    for slot, sph in enumerate(np.asarray(tables.slot_to_sphere)):
+        if sph >= 0:
+            slot_of.setdefault(sph, slot)
+    lpg = tables.leaves_per_group
     for i in np.nonzero(hit_id >= 0)[0]:
-        p = i // 64
-        leaf = slot_of[hit_id[i]] // cull.leaf_size
-        chunk, rel = divmod(leaf, lpc)
-        row = rows[chunk, p]
+        row = rows[i // 64]
+        leaf = slot_of[hit_id[i]] // tables.leaf_size
         cnt = row[0]
         if cnt >= 0:
-            assert rel in row[1:1 + cnt], (p, leaf, row[:10])
+            assert leaf in row[1:1 + cnt], (i, leaf, row[:10])
         else:
-            assert rel // lpg in row[1:1 - cnt], (p, leaf, row[:10])
+            assert leaf // lpg in row[1:1 - cnt], (i, leaf, row[:10])
 
 
-# ---------------------------------------------------------------------------
-# end-to-end equality vs brute force
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("leaf_size,n", [(8, 500), (32, 900)])
-def test_conecull_matches_brute(leaf_size, n):
-    scene, bvh = _scene_bvh(n=n, leaf_size=leaf_size)
-    tables = build_cone_tables(scene, bvh)
-    rays = _origin_rays(1024)
-    padded, dest = prep_rays_bucketed(rays, 64, cell_bits=4)
-
-    rec, overflow = nearest_hit_conecull(padded, scene, tables,
-                                         subpackets=4, subpacket=64,
-                                         interpret=True)
-    assert not bool(overflow)
-    ref = nearest_hit_brute(padded, scene)
-    got_id = np.asarray(rec.index)
-    ref_id = np.asarray(ref.index)
-    # exact id equality except measure-zero tie flips: allow none here
-    # (random scenes have no exact ties)
-    np.testing.assert_array_equal(got_id, ref_id)
-    ok = ref_id >= 0
-    # same formula, different XLA fusion order than brute: 2e-4 like
-    # tests/test_leafcull.py
-    np.testing.assert_allclose(np.asarray(rec.t)[ok], np.asarray(ref.t)[ok],
-                               rtol=2e-4, atol=1e-4)
-
-
-def test_conecull_t_lite_matches_full():
-    scene, bvh = _scene_bvh(n=500, leaf_size=8)
-    tables = build_cone_tables(scene, bvh)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hybrid_raw_order_matches_t(impl):
+    """Flat-stream results of the fused prep + query, mapped back through
+    ``dest``, equal the rays-API lite query on the same rays."""
+    scene, tables = _scene_tables(n=500)
     rays = _origin_rays(512)
-    padded, _ = prep_rays_bucketed(rays, 64, cell_bits=4)
-    t, sid, ovf = nearest_hit_conecull_t(padded, tables, subpackets=4,
-                                         subpacket=64, interpret=True)
-    rec, _ = nearest_hit_conecull(padded, scene, tables, subpackets=4,
-                                  subpacket=64, interpret=True)
-    np.testing.assert_array_equal(np.asarray(sid), np.asarray(rec.index))
-    ok = np.asarray(sid) >= 0
-    np.testing.assert_allclose(np.asarray(t)[ok], np.asarray(rec.t)[ok],
-                               rtol=2e-4, atol=1e-4)
-
-
-def test_conecull_chunked():
-    # Force multi-chunk tables with a tiny chunk byte budget.
-    scene, bvh = _scene_bvh(n=700, leaf_size=8)
-    tables = build_cone_tables(scene, bvh, max_chunk_bytes=80 * 1024)
-    assert tables.cull.num_chunks > 1
-    rays = _origin_rays(512)
-    padded, _ = prep_rays_bucketed(rays, 64, cell_bits=4)
-    rec, overflow = nearest_hit_conecull(padded, scene, tables,
-                                         subpackets=4, subpacket=64,
-                                         interpret=True)
-    ref = nearest_hit_brute(padded, scene)
-    np.testing.assert_array_equal(np.asarray(rec.index),
-                                  np.asarray(ref.index))
-
-
-def test_conecull_general_origins():
-    # Rays from scattered origins (not the shared-apex benchmark case):
-    # exercises the apex-box dilation.
-    scene, bvh = _scene_bvh(n=400, leaf_size=8)
-    tables = build_cone_tables(scene, bvh)
-    rng = np.random.default_rng(7)
-    o = rng.uniform(-30, 30, (512, 3)).astype(np.float32)
-    d = rng.uniform(-1, 1, (512, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rays = Ray(origin=jnp.asarray(o), direction=jnp.asarray(d))
-    padded, _ = prep_rays_bucketed(rays, 64, cell_bits=4)
-    rec, overflow = nearest_hit_conecull(padded, scene, tables,
-                                         subpackets=4, subpacket=64,
-                                         interpret=True)
-    ref = nearest_hit_brute(padded, scene)
-    np.testing.assert_array_equal(np.asarray(rec.index),
-                                  np.asarray(ref.index))
-
-
-def test_hybrid_raw_order_matches_t():
-    scene, bvh = _scene_bvh(n=500, leaf_size=8)
-    from tracer.kernels.conecull import (nearest_hit_hybrid_raw,
-                                         nearest_hit_hybrid_t,
-                                         kernel_order_dest)
-    tables = build_cone_tables(scene, bvh)
-    rays = _origin_rays(512)
-    padded, dest = prep_rays_bucketed(rays, 64, cell_bits=4)
-    t_raw, slot_raw, ovf = nearest_hit_hybrid_raw(
-        padded, tables, subpackets=4, subpacket=64, interpret=True)
-    t_ref, sid_ref, _ = nearest_hit_hybrid_t(
-        padded, tables, subpackets=4, subpacket=64, interpret=True)
-    dest2 = kernel_order_dest(dest, 4, 64)
-    np.testing.assert_array_equal(np.asarray(t_raw)[np.asarray(dest2)],
-                                  np.asarray(t_ref)[np.asarray(dest)])
+    feats, dest = prep_feats_bucketed(rays.origin, rays.direction, 64,
+                                      cell_bits=4)
+    t_raw, slot_raw, _ = nearest_hit_feats(feats, tables, impl=impl)
+    t_ref, sid_ref, _ = nearest_hit_leafcull_t(rays, tables, impl=impl)
+    dest = np.asarray(dest)
+    np.testing.assert_allclose(np.asarray(t_raw)[dest], np.asarray(t_ref),
+                               rtol=1e-6)
     # slot ids map back to input-order sphere ids via slot_to_sphere
-    s2s = np.asarray(tables.cull.slot_to_sphere)
-    sr = np.asarray(slot_raw)[np.asarray(dest2)]
+    s2s = np.asarray(tables.slot_to_sphere)
+    sr = np.asarray(slot_raw)[dest]
     sid = np.where(sr >= 0, s2s[np.maximum(sr, 0)], -1)
-    np.testing.assert_array_equal(sid, np.asarray(sid_ref)[np.asarray(dest)])
+    np.testing.assert_array_equal(sid, np.asarray(sid_ref))
 
 
-def test_hybrid_matches_brute():
-    scene, bvh = _scene_bvh(n=700, leaf_size=8)
-    from tracer.kernels.conecull import nearest_hit_hybrid_t
-    tables = build_cone_tables(scene, bvh)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hybrid_matches_brute(impl):
+    scene, tables = _scene_tables(n=700)
     rays = _origin_rays(1024)
-    padded, dest = prep_rays_bucketed(rays, 64, cell_bits=4)
-    t, sid, ovf = nearest_hit_hybrid_t(padded, tables, subpackets=4,
-                                       subpacket=64, interpret=True)
-    ref = nearest_hit_brute(padded, scene)
-    np.testing.assert_array_equal(np.asarray(sid), np.asarray(ref.index))
-
-
-def test_conecull_unsorted_degenerate_cones_match_brute():
-    """ADVICE r4: UNSORTED incoherent rays give direction boxes straddling
-    the origin -> degenerate cones (rho = 1e18, accept-all refine) and
-    group-mode rows, the regime where the accumulator sustains full
-    survivor rates. The two-pass drain (push_iteration) must keep the
-    window in bounds and results exactly equal to brute force."""
-    scene, bvh = _scene_bvh(n=900, leaf_size=8)
-    tables = build_cone_tables(scene, bvh)
-    rays = _origin_rays(512, seed=11)   # NO sort, NO bucketing
-
-    rec, overflow = nearest_hit_conecull(rays, scene, tables,
-                                         subpackets=4, subpacket=64,
-                                         max_groups=64, max_candidates=119,
-                                         interpret=True)
+    feats, dest = prep_feats_bucketed(rays.origin, rays.direction, 64,
+                                      cell_bits=4)
+    t, slot, ovf = nearest_hit_feats(feats, tables, impl=impl)
+    assert not bool(ovf)
     ref = nearest_hit_brute(rays, scene)
-    got_id = np.asarray(rec.index)
-    ref_id = np.asarray(ref.index)
-    np.testing.assert_array_equal(got_id, ref_id)
-    ok = ref_id >= 0
-    np.testing.assert_allclose(np.asarray(rec.t)[ok], np.asarray(ref.t)[ok],
-                               rtol=2e-4, atol=1e-4)
+    dest = np.asarray(dest)
+    slot = np.asarray(slot)[dest]
+    s2s = np.asarray(tables.slot_to_sphere)
+    sid = np.where(slot >= 0, s2s[np.maximum(slot, 0)], -1)
+    np.testing.assert_array_equal(sid, np.asarray(ref.index))
+    hit = sid >= 0
+    np.testing.assert_allclose(np.asarray(t)[dest][hit],
+                               np.asarray(ref.t)[hit], rtol=1e-4)
 
 
-def test_conecull_group_mode_rows_exercised():
-    """Force group-mode rows (tiny leaf budget) and assert equality --
-    covers the group-walk path of the phase B kernel."""
-    scene, bvh = _scene_bvh(n=900, leaf_size=8)
-    tables = build_cone_tables(scene, bvh)
-    rays = _origin_rays(512, seed=5)
-    padded, _ = prep_rays_bucketed(rays, 64, cell_bits=4)
-    from tracer.kernels.leafcull import pack_ray_features as _prf
-    feats, g, _ = _prf(padded.origin, padded.direction, 4, 64)
-    rows, _, _ = cone_candidates(feats, tables, 64, 7, interpret=True)
-    assert (np.asarray(rows)[0, :, 0] < 0).any(), \
-        "budget 7 should force at least one group-mode row"
-
-    rec, _ = nearest_hit_conecull(padded, scene, tables, subpackets=4,
-                                  subpacket=64, max_candidates=7,
-                                  interpret=True)
-    ref = nearest_hit_brute(padded, scene)
-    np.testing.assert_array_equal(np.asarray(rec.index),
-                                  np.asarray(ref.index))
+def test_bounds_from_feats_match_ray_bounds():
+    rng = np.random.default_rng(1)
+    o = rng.uniform(-5, 5, (256, 3)).astype(np.float32)
+    d = rng.uniform(-1, 1, (256, 3)).astype(np.float32)
+    feats = pack_ray_features(jnp.asarray(o), jnp.asarray(d), 64)
+    assert feats.shape == (4, 64, 16)
+    got = bounds_from_feats(feats)
+    want = (o.reshape(4, 64, 3).min(1), o.reshape(4, 64, 3).max(1),
+            d.reshape(4, 64, 3).min(1), d.reshape(4, 64, 3).max(1))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=1e-6)

@@ -64,11 +64,12 @@ def test_device_bvh_traversal_equals_brute(rng, n, span):
     _assert_matches_brute(got, ref)
 
 
-def test_device_bvh_cull_tables_equal_brute(rng):
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+def test_device_bvh_cull_tables_equal_brute(rng, impl):
     # The leafcull hot path must accept device-built trees end to end.
     from tracer.core.sort import sort_rays_octahedral
     from tracer.kernels.leafcull import (build_cull_tables,
-                                         nearest_hit_leafcull_checked)
+                                         nearest_hit_leafcull)
     n = 1200
     scene = benchmark_scene(jax.random.PRNGKey(3), n, world_size=70.0)
     bvh = build_bvh_device(scene.centers, scene.radii, leaf_size=8)
@@ -76,8 +77,9 @@ def test_device_bvh_cull_tables_equal_brute(rng):
     rays = _rand_rays(rng, 1024, span=15.0)
     sorted_rays, inv = sort_rays_octahedral(rays)
     ref = nearest_hit_brute(rays, scene)
-    rec = nearest_hit_leafcull_checked(sorted_rays, scene, tables,
-                                       subpacket=64, interpret=True)
+    rec, overflow = nearest_hit_leafcull(sorted_rays, scene, tables,
+                                         subpacket=64, impl=impl)
+    assert not bool(overflow)
     got = jax.tree_util.tree_map(lambda x: x[inv], rec)
     _assert_matches_brute(got, ref)
 

@@ -1,7 +1,7 @@
-"""CI coverage for the previously-untested distributed pieces (VERDICT r2
-weak item 5/8): the scaling harness, the sharded train step called
-directly, the microbatched-overlap gradient path, and a REAL
-fault-injection resume (child process SIGKILLed mid-fit).
+"""CI coverage for the distributed pieces: the scaling harness, the
+sharded train step called directly (loss and gradients), the
+microbatched-overlap gradient path, and a real fault-injection resume
+(child process SIGKILLed mid-fit).
 """
 
 import os
@@ -147,6 +147,69 @@ def test_fit_microbatched_overlap_matches_single():
     np.testing.assert_allclose(r1.losses, r2.losses, rtol=1e-5)
     np.testing.assert_allclose(np.asarray(r1.scene.centers),
                                np.asarray(r2.scene.centers), atol=1e-5)
+
+
+def test_sharded_train_gradients_equal_unsharded():
+    """The gradient all-reduce counts every device once: the sharded step's
+    gradient (Adam's first moment after one step, 0.1 g) equals the same
+    step's on a one-device mesh, not a multiple of it."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from tracer.dist.train import make_train_step
+    from tracer.scene.camera import camera_rays
+
+    scene = benchmark_scene(jax.random.PRNGKey(3), 64, world_size=40.0,
+                            radius=3.0)
+    cfg = TracerConfig(width=16, height=8, max_depth=1)
+    rays = camera_rays(Camera.default(), cfg)
+    o, d = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    target = jnp.zeros_like(o)
+
+    def moments(mesh):
+        init_fn, factory = make_train_step(mesh, k_top=16)
+        params, opt_state = init_fn(scene)
+        put = lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec))
+        params = jax.tree_util.tree_map(lambda x: put(x, P(SCENE_AXIS)),
+                                        params)
+        opt_state = jax.tree_util.tree_map(
+            lambda x: put(x, P(SCENE_AXIS) if x.ndim else P()), opt_state)
+        _, new_opt, _ = factory(opt_state)(
+            params, opt_state, put(o, P(RAY_AXIS)), put(d, P(RAY_AXIS)),
+            put(target, P(RAY_AXIS)))
+        return [np.asarray(x) for x in jax.tree_util.tree_leaves(
+            new_opt[0].mu)]
+
+    devs = np.array(jax.devices()[:8])
+    sharded = moments(Mesh(devs.reshape(2, 4), (RAY_AXIS, SCENE_AXIS)))
+    single = moments(Mesh(devs[:1].reshape(1, 1), (RAY_AXIS, SCENE_AXIS)))
+    for a, b in zip(sharded, single):
+        np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max())
+
+
+def test_fit_sharded_gradients_equal_unsharded():
+    """fit_scene's ray-sharded (and microbatched) gradient equals the
+    single-device gradient of the same mean loss."""
+    from tracer.diff.fit import (make_loss_fn, make_value_and_grad,
+                                 scene_to_params)
+    from tracer.scene.camera import camera_rays
+
+    scene = benchmark_scene(jax.random.PRNGKey(3), 24, world_size=40.0)
+    cfg = TracerConfig(width=16, height=16, max_depth=1)
+    cam = Camera.default()
+    rays = camera_rays(cam, cfg)
+    o, d = rays.origin.reshape(-1, 3), rays.direction.reshape(-1, 3)
+    target = jnp.zeros_like(o)
+    params = (scene_to_params(scene), {"position": cam.position,
+                                       "yaw": cam.yaw, "pitch": cam.pitch})
+    loss_fn = make_loss_fn(cam, SoftParams(), cfg, False)
+    v1, g1 = make_value_and_grad(loss_fn)(params, o, d, target)
+    for micro in (1, 4):
+        v8, g8 = make_value_and_grad(loss_fn, ray_mesh(8), micro)(
+            params, o, d, target)
+        np.testing.assert_allclose(float(v8), float(v1), rtol=1e-5)
+        for a, b in zip(jax.tree_util.tree_leaves(g8),
+                        jax.tree_util.tree_leaves(g1)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       atol=1e-5 * np.abs(b).max() + 1e-12)
 
 
 _CHILD = r"""

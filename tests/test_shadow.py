@@ -1,10 +1,10 @@
-"""Shadow / any-hit coverage (BASELINE config 3, VERDICT r4 task 6).
+"""Shadow / any-hit coverage (BASELINE config 3).
 
-The any-hit kernel (tracer/kernels/leafcull.occluded_leafcull) must agree
-with the dense brute-force occlusion oracle exactly — including the far
+The any-hit query (tracer/kernels/leafcull.occluded_leafcull) must agree
+with the dense brute-force occlusion oracle exactly, including the far
 clip t < t_max and the reference acceptance rule (disc > 0, near root,
-t > EPSILON; src/hit.c:19-39). Kernels run in interpret mode on CPU like
-the rest of the kernel CI.
+t > EPSILON; src/hit.c:19-39). Phase B runs as the Triton kernel body in
+Pallas's interpreter and as the plain XLA walk.
 """
 
 import jax
@@ -20,12 +20,13 @@ from tracer.kernels.leafcull import build_cull_tables, occluded_leafcull
 from tracer.scene.camera import Camera
 from tracer.scene.scene import benchmark_scene
 
+IMPLS = ["interpret", "xla"]
 
-def _tables(scene, leaf=8, chunk_mb=9.0):
+
+def _tables(scene, leaf=8):
     bvh = build_bvh(np.asarray(scene.centers), np.asarray(scene.radii),
                     leaf_size=leaf)
-    return build_cull_tables(scene, bvh,
-                             max_chunk_bytes=int(chunk_mb * (1 << 20)))
+    return build_cull_tables(scene, bvh)
 
 
 def _rand_rays(rng, n, span=0.0):
@@ -35,12 +36,13 @@ def _rand_rays(rng, n, span=0.0):
     return Ray(origin=jnp.array(o), direction=jnp.array(d))
 
 
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("n,world,span,tmax", [
     (512, 60.0, 0.0, 1.0e9),     # origin rays, effectively no far clip
     (512, 60.0, 10.0, 40.0),     # spread origins, finite t_max
     (2048, 120.0, 30.0, 25.0),
 ])
-def test_anyhit_equals_brute(n, world, span, tmax):
+def test_anyhit_equals_brute(n, world, span, tmax, impl):
     rng = np.random.default_rng(n + int(span))
     scene = benchmark_scene(jax.random.PRNGKey(5 * n), n, world_size=world)
     tables = _tables(scene)
@@ -48,14 +50,15 @@ def test_anyhit_equals_brute(n, world, span, tmax):
     from tracer.core.sort import sort_rays_octahedral
     rs, inv = sort_rays_octahedral(rays)
     tm = jnp.full((1024,), tmax, jnp.float32)
-    occ, ovf = occluded_leafcull(rs, tables, tm, interpret=True)
+    occ, ovf = occluded_leafcull(rs, tables, tm, impl=impl)
     occ = occ[inv]
     ref = any_hit_brute(rays, scene, tm)
     assert not bool(ovf)
     _assert_occ_matches(occ, ref, rays, scene, tmax)
 
 
-def test_anyhit_tmax_is_exclusive_of_farther_hits():
+@pytest.mark.parametrize("impl", IMPLS)
+def test_anyhit_tmax_is_exclusive_of_farther_hits(impl):
     """A sphere strictly beyond t_max must not occlude."""
     scene = benchmark_scene(jax.random.PRNGKey(0), 8, world_size=20.0)
     # one ray straight at sphere 0's center
@@ -68,7 +71,7 @@ def test_anyhit_tmax_is_exclusive_of_farther_hits():
     near_t = dist - r
     for tm, expect in [(near_t * 0.5, None), (dist + 2 * r, True)]:
         occ, _ = occluded_leafcull(
-            rays, tables, jnp.full((1,), tm, jnp.float32), interpret=True)
+            rays, tables, jnp.full((1,), tm, jnp.float32), impl=impl)
         ref = any_hit_brute(rays, scene, jnp.full((1,), tm, jnp.float32))
         assert bool(occ[0]) == bool(ref[0])
         if expect is not None:
@@ -107,24 +110,10 @@ def _assert_occ_matches(occ, ref, rays, scene, tmax):
     assert len(bad) <= max(2, occ.size // 200), f"{len(bad)} flips is too many"
 
 
-def test_anyhit_multichunk():
-    rng = np.random.default_rng(3)
-    scene = benchmark_scene(jax.random.PRNGKey(9), 4096, world_size=150.0)
-    tables = _tables(scene, leaf=8, chunk_mb=0.25)   # force several chunks
-    assert tables.num_chunks > 1
-    rays = _rand_rays(rng, 512, span=20.0)
-    from tracer.core.sort import sort_rays_octahedral
-    rs, inv = sort_rays_octahedral(rays)
-    tm = jnp.full((512,), 60.0, jnp.float32)
-    occ, _ = occluded_leafcull(rs, tables, tm, interpret=True)
-    ref = any_hit_brute(rays, scene, tm)
-    _assert_occ_matches(np.asarray(occ)[np.asarray(inv)], ref, rays, scene,
-                        60.0)
-
-
-def test_render_direct_matches_oracle_composition():
-    """render_direct through the kernels == the same composition through
-    brute closest-hit + brute any-hit."""
+@pytest.mark.parametrize("impl", IMPLS)
+def test_render_direct_matches_oracle_composition(impl):
+    """render_direct through the leaf-cull any-hit == the same composition
+    through brute closest-hit + brute any-hit."""
     from tracer.integrator.wavefront import render_direct
     from tracer.intersect.traverse import nearest_hit_bvh
 
@@ -144,7 +133,7 @@ def test_render_direct_matches_oracle_composition():
 
     def occ_kernel(s):
         def f(r, tm):
-            occ, _ = occluded_leafcull(r, tables, tm, interpret=True)
+            occ, _ = occluded_leafcull(r, tables, tm, impl=impl)
             return occ
         return f
 

@@ -113,3 +113,102 @@ def test_cli_viz_smoke(tmp_path):
     cli.main(["viz", "--width", "32", "--height", "24", "--spheres", "6",
               "--viz-depth", "3", "--out", str(out)])
     assert out.exists()
+
+
+# ---------------------------------------------------------- PNG writer
+
+@pytest.mark.parametrize("shape,dtype", [((7, 5, 3), np.float32),
+                                         ((1, 64, 3), np.uint8)])
+def test_png_writer_roundtrip(tmp_path, shape, dtype):
+    """Decode the written file with zlib and check every pixel."""
+    import struct
+    import zlib
+    from tracer.viz.png import write_png
+
+    rng = np.random.default_rng(0)
+    img = (rng.random(shape) if dtype == np.float32
+           else rng.integers(0, 256, shape)).astype(dtype)
+    path = tmp_path / "x.png"
+    write_png(str(path), img)
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (h, w, depth, ctype) == (shape[0], shape[1], 8, 2)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    assert (raw[:, 0] == 0).all()                    # filter type none
+    want = img if dtype == np.uint8 else (img * 255).astype(np.uint8)
+    np.testing.assert_array_equal(raw[:, 1:].reshape(shape), want)
+
+
+def test_png_clips_out_of_range_floats():
+    from tracer.viz.png import encode_png
+    a = encode_png(np.full((2, 2, 3), 2.0, np.float32))
+    b = encode_png(np.full((2, 2, 3), 1.0, np.float32))
+    assert a == b
+
+
+# ------------------------------------------------- pytree dataclass helper
+
+def test_pytree_dataclass_leaves_and_static_fields():
+    from tracer.core import pytree
+
+    @pytree.dataclass
+    class Box:
+        lo: jnp.ndarray
+        hi: jnp.ndarray
+        depth: int = pytree.field(static=True, default=3)
+
+    b = Box(lo=jnp.zeros(3), hi=jnp.ones(3))
+    leaves, treedef = jax.tree_util.tree_flatten(b)
+    assert len(leaves) == 2
+    assert jax.tree_util.tree_unflatten(treedef, leaves).depth == 3
+    # Static fields are part of the treedef: a different value retraces.
+    traces = []
+
+    @jax.jit
+    def f(box):
+        traces.append(box.depth)
+        return box.hi - box.lo
+
+    f(b)
+    f(b.replace(lo=jnp.full(3, 0.5, jnp.float32)))
+    f(b.replace(depth=4))
+    assert traces == [3, 4]
+
+
+def test_pytree_dataclass_is_frozen_and_replace_copies():
+    import dataclasses
+    from tracer.core import pytree
+
+    @pytree.dataclass
+    class P2:
+        x: jnp.ndarray
+        y: jnp.ndarray = pytree.field(default_factory=lambda: jnp.float32(2))
+
+    p = P2(x=jnp.float32(1))
+    q = p.replace(x=jnp.float32(5))
+    assert float(p.x) == 1 and float(q.x) == 5 and float(q.y) == 2
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        p.x = jnp.float32(3)
+
+
+def test_pytree_dataclass_grad_and_vmap():
+    from tracer.scene.scene import benchmark_scene
+    scene = benchmark_scene(jax.random.PRNGKey(0), 4, world_size=10.0)
+    g = jax.grad(lambda s: jnp.sum(s.centers ** 2) + jnp.sum(s.radii))(scene)
+    np.testing.assert_allclose(np.asarray(g.centers),
+                               2 * np.asarray(scene.centers), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(g.radii), 1.0)
+    rays = Ray(origin=jnp.zeros((5, 3)), direction=jnp.ones((5, 3)))
+    pts = jax.vmap(lambda r: r.at(jnp.float32(2.0)))(rays)
+    np.testing.assert_allclose(np.asarray(pts), 2.0)

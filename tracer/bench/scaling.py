@@ -5,19 +5,19 @@ hosts. This harness measures closest-hit throughput on sub-meshes of
 1, 2, 4, ..., P devices with the scene replicated and rays sharded (DP) --
 the framework's primary strategy -- and reports efficiency relative to the
 1-device run. It runs identically on a virtual CPU mesh (CI) and a real pod
-slice (after tracer.dist.init_distributed); the reference has no analog
+multi-device host; the reference has no analog
 (single-threaded C, SURVEY.md section 2 parallelism inventory).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable
 
 import jax
 import numpy as np
 from jax.sharding import Mesh
 
+from tracer.bench.timing import time_calls
 from tracer.core.types import Ray
 from tracer.dist.mesh import RAY_AXIS
 from tracer.dist.shard import nearest_hit_sharded
@@ -41,8 +41,7 @@ def measure_scaling(scene, rays: Ray, nearest_hit: Callable,
         mesh = Mesh(np.array(devs[:n]), (RAY_AXIS,))
         fn = jax.jit(lambda r, s: nearest_hit_sharded(
             r, s, mesh, nearest_hit).t)
-        from tracer.bench.timing import time_device
-        dt = time_device(fn, rays, scene, n1=1, n2=1 + reps, repeats=1)
+        dt = time_calls(fn, rays, scene, n=reps, warmup=1)[0].median_s
         # Overhead decomposition (VERDICT r4 task 10): time a second,
         # quarter-size batch. With T(n, B) = overhead(n) + work(B)/n the
         # two measurements separate the batch-proportional term from the
@@ -51,7 +50,7 @@ def measure_scaling(scene, rays: Ray, nearest_hit: Callable,
         q = b // 4
         rq = Ray(origin=rays.origin.reshape(-1, 3)[:q],
                  direction=rays.direction.reshape(-1, 3)[:q])
-        dtq = time_device(fn, rq, scene, n1=1, n2=1 + reps, repeats=1)
+        dtq = time_calls(fn, rq, scene, n=reps, warmup=1)[0].median_s
         work = max((dt - dtq) * 4.0 / 3.0, 0.0)
         overhead = max(dt - work, 0.0)
         mrays = b / dt / 1e6

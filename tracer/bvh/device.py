@@ -1,8 +1,8 @@
-"""On-device BVH construction (JAX, jittable, TPU-native).
+"""On-device BVH construction (JAX, jittable).
 
 The reference builds its BVH in its own compute language — recursive
 top-down SAH partitioning on the CPU (src/bvh.c:117-207). This module is
-the TPU-native equivalent for the "BVH build ms" metric (SURVEY.md §2 row
+the on-device equivalent for the "BVH build ms" metric (SURVEY.md §2 row
 5): an **LBVH** built entirely from vectorized XLA ops, no host loops:
 
   1. Morton-encode sphere centroids (10 bits/axis, the classic LBVH
@@ -17,9 +17,9 @@ the TPU-native equivalent for the "BVH build ms" metric (SURVEY.md §2 row
      right turn skips the left sibling's whole subtree) and escape index
      idx + 2^(D-d+1) - 1. One small scatter per level writes the arrays.
 
-Build = O(n log n) work, all MXU/VPU-friendly; measured orders of
-magnitude faster than the host binned-SAH builder at large n, at the cost
-of a somewhat less tight tree (Morton order ignores surface area). Both
+Build = O(n log n) work in vectorized ops; far faster than the host
+binned-SAH builder at large n (PERF.md), at the cost of a somewhat less
+tight tree (Morton order ignores surface area). Both
 builders emit the same FlatBVH, so every consumer (pure-jnp traversal,
 Pallas kernels, cull tables, refit) accepts either.
 """

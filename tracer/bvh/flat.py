@@ -1,8 +1,8 @@
-"""Flat, struct-of-arrays BVH: the TPU-native acceleration structure.
+"""Flat, struct-of-arrays BVH: the accelerator-side acceleration structure.
 
 The reference stores a heap of pointer-linked ``BVHNode``s traversed by
 recursion (include/Custom/bvh.h:12-18, src/hit.c:91-109). Pointer chasing and
-recursion don't exist on a TPU; instead the tree is flattened to dense arrays
+recursion do not vectorize; instead the tree is flattened to dense arrays
 in DFS **preorder** with an *escape index* per node:
 
   - an internal node's left child is always ``i + 1`` (preorder), so no child
@@ -25,10 +25,10 @@ primitive in a leaf is tested.
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
+from tracer.core import pytree
 
 # Sentinel "never hits" primitive used to pad leaves: radius 0 makes the
 # discriminant strictly negative for any ray not passing exactly through the
@@ -37,7 +37,7 @@ SENTINEL_CENTER = 3.0e37
 SENTINEL_RADIUS = 0.0
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class FlatBVH:
     """Escape-indexed flat BVH over a sphere scene.
 
@@ -56,7 +56,7 @@ class FlatBVH:
     escape: Array
     leaf_start: Array
     prim_idx: Array
-    leaf_size: int = flax.struct.field(pytree_node=False, default=4)
+    leaf_size: int = pytree.field(static=True, default=4)
 
     @property
     def num_nodes(self) -> int:

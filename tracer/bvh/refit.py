@@ -23,17 +23,17 @@ refitted tree equals brute force on the moved scene.
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
 
 from tracer.bvh.flat import FlatBVH
+from tracer.core import pytree
 
 _EMPTY = 3.0e37  # collapsed box for sentinel-only slots
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class RefitPlan:
     """Static topology schedule for :func:`refit_bvh`.
 

@@ -8,7 +8,7 @@ normal and normalize it, which yields the identical uniform-on-sphere
 distribution in fixed time, then do the same sign flip.
 
 All samplers take explicit ``jax.random`` keys: deterministic, splittable,
-reproducible across hosts -- the TPU-native replacement for the reference's
+reproducible across hosts -- the batched replacement for the reference's
 global ``rand()`` stream (``srand(time(NULL))``, src/main.c:90).
 """
 

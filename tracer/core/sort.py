@@ -92,19 +92,15 @@ def plan_bucket_pad(sorted_codes: Array, subpacket: int,
     the previous real ray of their cell), dest (B,) i32 maps each input
     ray to its padded slot; Bp = B + 2^cell_bits * subpacket (static).
 
-    Every lookup here runs against the tiny (2^cell_bits,) cell table —
-    the original formulation searchsorted the full (B,) dest array, which
-    measured 107 ms at B=512k on v5e; this plan is ~1 ms.
+    Every lookup here runs against the tiny (2^cell_bits,) cell table
+    instead of searchsorting the full (B,) dest array.
     """
     b = sorted_codes.shape[0]
     ncells = 1 << cell_bits
     cid = jnp.arange(ncells, dtype=jnp.int32)
-    # Per-cell boundaries by searchsorted with ncells+1 QUERIES against the
-    # sorted codes (a couple hundred binary-search gathers). The round-3
-    # dense (B, ncells) compare-reduce was ~1 ms of compare work but its
-    # (B, 256) materialization measured 8.7 ms at B=512k; per-RAY
-    # searchsorted (B queries) was worse still (~60 ms). Query count is
-    # what matters.
+    # Per-cell boundaries by searchsorted with ncells+1 queries against the
+    # sorted codes (a couple hundred binary-search gathers), rather than a
+    # dense (B, ncells) compare-reduce or a per-ray searchsorted.
     edges = (cid.astype(jnp.uint32) << (32 - cell_bits))
     bounds = jnp.searchsorted(sorted_codes,
                               jnp.concatenate([edges, jnp.array(
@@ -120,11 +116,8 @@ def plan_bucket_pad(sorted_codes: Array, subpacket: int,
     # Per-element/per-slot tables WITHOUT per-element gathers: every
     # quantity we need is piecewise constant over at most ncells segments
     # (in b-space at `start`, in bp-space at `pstart`), so scatter the
-    # ncells segment DELTAS and take one shared (3, bp) cumsum. The
-    # round-4 formulation gathered `pad_before[cell]` ((B,)-gather from a
-    # 256 table) and `table[pcell]` ((bp, 3) row gather) — those two
-    # gathers were ~6 of plan_bucket_pad's 8 ms at B=512k on v5e; the
-    # delta-cumsum form measures ~1 ms (tools/profile_r5.py).
+    # ncells segment DELTAS and take one shared (3, bp) cumsum instead of
+    # gathering `pad_before[cell]` per ray and a (bp, 3) table per slot.
     #
     # Padded cell c occupies [pstart[c], pstart[c+1]); both ends are
     # subpacket-aligned, so no subpacket straddles two cells.
@@ -144,13 +137,8 @@ def plan_bucket_pad(sorted_codes: Array, subpacket: int,
 
 
 def gather_rays(o: Array, d: Array, idx: Array):
-    """Gather (o[idx], d[idx]) through one packed (B, 8) row gather.
-
-    Two separate (B, 3) row gathers measured 12 ms at B=512k on v5e (the
-    3-lane rows pad to a full 128-lane word each); packing origin and
-    direction into one 8-lane row halves the row count and returns the
-    same data for ~1.5 ms.
-    """
+    """Gather (o[idx], d[idx]) through one packed (B, 8) row gather
+    (one row gather instead of two)."""
     packed = jnp.concatenate(
         [o, d, jnp.zeros((o.shape[0], 2), o.dtype)], axis=1)
     g = packed[idx]
@@ -197,9 +185,8 @@ def prep_rays_bucketed(rays: Ray, subpacket: int, cell_bits: int = 8):
     sc, perm = jax.lax.sort((codes, iota), dimension=0, num_keys=1)
     src, dest_sorted = plan_bucket_pad(sc, subpacket, cell_bits)
     op, dp = gather_rays(o, d, perm[src])
-    # dest_sorted maps sorted position -> slot; re-key by original index.
-    # Inverting the permutation by a second 2-operand sort (~2 ms at 512k)
-    # beats the i32 scatter XLA emits for .at[perm].set (~3 ms).
+    # dest_sorted maps sorted position -> slot; re-key by original index
+    # by inverting the permutation with a second 2-operand sort.
     _, dest = jax.lax.sort((perm, dest_sorted), dimension=0, num_keys=1)
     return Ray(origin=op, direction=dp), dest
 

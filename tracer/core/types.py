@@ -9,12 +9,12 @@ holds a whole wavefront. The object pointer becomes an int32 sphere index
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 from jax import Array
+from tracer.core import pytree
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Ray:
     """A batch of rays; fields have shape ``(..., 3)``."""
 
@@ -30,7 +30,7 @@ class Ray:
         return self.origin + t[..., None] * self.direction
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class HitRecord:
     """A batch of closest-hit results; batch shape ``(...,)``.
 

@@ -1,9 +1,9 @@
 """Batched 3-vector math over ``(..., 3)`` arrays.
 
-TPU-native re-expression of the reference's scalar vec3 helpers
+Batched re-expression of the reference's scalar vec3 helpers
 (``src/vec3.c:17-73``): every function is elementwise over arbitrary batch
 dimensions with the vector components in the trailing axis, so the whole
-wavefront of rays is one VPU-friendly array op. No per-element loops anywhere.
+wavefront of rays is one vectorized array op. No per-element loops anywhere.
 """
 
 from __future__ import annotations

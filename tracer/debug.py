@@ -21,9 +21,9 @@ out-of-contract values early:
     users for bring-up of new scenes/kernels.
 
 The Pallas-kernel analog of a sanitizer — interpret-mode execution — is
-exercised throughout the kernel test suite (tests/test_kernels.py,
-tests/test_leafcull.py, tests/test_conecull.py run every kernel with
-``interpret=True`` on CPU).
+exercised throughout the kernel test suite (tests/test_leafcull.py,
+tests/test_shadow.py and tests/test_conecull.py run the Triton kernel body
+in Pallas's interpreter on CPU).
 """
 
 from __future__ import annotations

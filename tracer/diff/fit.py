@@ -72,6 +72,56 @@ def make_loss_fn(camera: Camera, soft: SoftParams, config: TracerConfig,
     return loss_fn
 
 
+def make_value_and_grad(loss_fn, mesh: Mesh = None,
+                        grad_microbatch: int = 1):
+    """Jitted ``(params, ray_o, ray_d, target) -> (loss, grads)`` of the
+    mean loss over all rays; with ``mesh``, rays shard over its ray axis
+    and ``params`` replicate."""
+    vg = jax.value_and_grad(loss_fn)
+    if mesh is None:
+        return jax.jit(vg)
+
+    def local(all_params, ray_o, ray_d, target):
+        # all_params are replicated (invariant over the ray axis), so
+        # autodiff already sums their cotangents over the ray shards
+        # (the transpose of the implicit broadcast): grads need only
+        # the 1/n of the mean; the loss value is psum'd explicitly.
+        scale = 1.0 / mesh.shape[RAY_AXIS]
+        T = max(1, grad_microbatch)
+        if T == 1:
+            val, grads = vg(all_params, ray_o, ray_d, target)
+            return (jax.lax.psum(val * scale, RAY_AXIS),
+                    jax.tree_util.tree_map(lambda g: g * scale, grads))
+        # Gradient all-reduce overlapped with backward (SURVEY.md §2
+        # parallelism item 3): the ray shard splits into T tile
+        # microbatches; tile k's gradient sum is issued as soon as its
+        # backward finishes and has no data dependence on tile k+1's
+        # forward/backward, so XLA's async collectives run it while
+        # tile k+1 computes. The Python loop is unrolled at trace
+        # time (T is static): a lax.scan would serialize the
+        # collective into the loop carry and forbid the overlap.
+        o_t = ray_o.reshape(T, -1, 3)
+        d_t = ray_d.reshape(T, -1, 3)
+        tg_t = target.reshape(T, -1, 3)
+        val_acc = jnp.float32(0)
+        g_acc = None
+        for t in range(T):
+            val, grads = vg(all_params, o_t[t], d_t[t], tg_t[t])
+            part = (jax.lax.psum(val * (scale / T), RAY_AXIS),
+                    jax.tree_util.tree_map(lambda g: g * (scale / T),
+                                           grads))
+            val_acc = val_acc + part[0]
+            g_acc = part[1] if g_acc is None else jax.tree_util.tree_map(
+                jnp.add, g_acc, part[1])
+        return val_acc, g_acc
+
+    return jax.jit(shard_map(
+        local, mesh=mesh,
+        in_specs=(P(), P(RAY_AXIS), P(RAY_AXIS), P(RAY_AXIS)),
+        out_specs=(P(), P()),
+    ))
+
+
 def fit_scene(target: Array, init_scene: Scene, camera: Camera,
               steps: int = 200, lr: float = 3e-2,
               soft: SoftParams = None,
@@ -98,50 +148,7 @@ def fit_scene(target: Array, init_scene: Scene, camera: Camera,
                   {"position": camera.position, "yaw": camera.yaw,
                    "pitch": camera.pitch})
     loss_fn = make_loss_fn(camera, soft, config, optimize_camera)
-    vg = jax.value_and_grad(loss_fn)
-
-    if mesh is None:
-        compute = jax.jit(vg)
-    else:
-        def local(all_params, ray_o, ray_d, target):
-            scale = 1.0 / mesh.shape[RAY_AXIS]
-            T = max(1, grad_microbatch)
-            if T == 1:
-                val, grads = vg(all_params, ray_o, ray_d, target)
-                return jax.lax.psum(
-                    (val * scale,
-                     jax.tree_util.tree_map(lambda g: g * scale, grads)),
-                    RAY_AXIS)
-            # Gradient all-reduce OVERLAPPED with backward (SURVEY.md §2
-            # parallelism item 3): the ray shard splits into T tile
-            # microbatches; tile k's grad psum is issued as soon as its
-            # backward finishes and has no data dependence on tile k+1's
-            # forward/backward, so XLA's async collectives run it on ICI
-            # while tile k+1 computes. The Python loop is unrolled at
-            # trace time (T is static) — a lax.scan would serialize the
-            # collective into the loop carry and forbid the overlap.
-            o_t = ray_o.reshape(T, -1, 3)
-            d_t = ray_d.reshape(T, -1, 3)
-            tg_t = target.reshape(T, -1, 3)
-            val_acc = jnp.float32(0)
-            g_acc = None
-            for t in range(T):
-                val, grads = vg(all_params, o_t[t], d_t[t], tg_t[t])
-                part = jax.lax.psum(
-                    (val * (scale / T),
-                     jax.tree_util.tree_map(lambda g: g * (scale / T),
-                                            grads)), RAY_AXIS)
-                val_acc = val_acc + part[0]
-                g_acc = part[1] if g_acc is None else jax.tree_util.tree_map(
-                    jnp.add, g_acc, part[1])
-            return val_acc, g_acc
-
-        rep = jax.tree_util.tree_map(lambda _: P(), all_params)
-        compute = jax.jit(shard_map(
-            local, mesh=mesh,
-            in_specs=(rep, P(RAY_AXIS), P(RAY_AXIS), P(RAY_AXIS)),
-            out_specs=(P(), rep),
-        ))
+    compute = make_value_and_grad(loss_fn, mesh, grad_microbatch)
 
     opt = optax.adam(lr)
     opt_state = opt.init(all_params)

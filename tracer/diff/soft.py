@@ -37,7 +37,6 @@ the brute-force oracle.
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import Array
@@ -48,22 +47,23 @@ from tracer.core.types import Ray
 from tracer.integrator.wavefront import sky_color
 from tracer.scene.camera import Camera, camera_rays
 from tracer.scene.scene import Scene
+from tracer.core import pytree
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class SoftParams:
     """Smoothing temperatures. edge_sharpness is in units of 1/radius (a
     sharpness of 50 => the silhouette edge is ~2% of the radius wide);
     tau_depth is in world units (occlusion softness along the ray)."""
 
-    edge_sharpness: Array = flax.struct.field(
+    edge_sharpness: Array = pytree.field(
         default_factory=lambda: jnp.float32(50.0))
-    tau_depth: Array = flax.struct.field(
+    tau_depth: Array = pytree.field(
         default_factory=lambda: jnp.float32(0.05))
     # Gradient-smoothing scale, relative to each sphere's radius: caps the
     # sqrt-gradient blowups at rays through a sphere's center (perp -> 0) and
     # at grazing incidence (disc -> 0), keeping AD finite and FD-matchable.
-    smooth_eps: Array = flax.struct.field(
+    smooth_eps: Array = pytree.field(
         default_factory=lambda: jnp.float32(0.05))
 
 

@@ -55,13 +55,13 @@ def candidate_leaf_ids(o: Array, d: Array, tables: CullTables,
     """Per-subpacket candidate LEAF ids (slot order).
 
     Returns (leaf_ids (P, max_leaves) i32 zero-padded, valid (P, max_leaves)
-    bool, overflow () bool). Single-chunk tables only.
+    bool, overflow () bool).
     """
-    assert tables.num_chunks == 1, "sparse soft expects single-chunk tables"
     lpg = tables.leaves_per_group
     k = max_leaves
-    rows, overflow = leaf_candidates(o, d, tables, max_groups, k, subpacket)
-    row = rows[0]                                       # (P, rowlen)
+    row, overflow = leaf_candidates(o, d, tables, max_groups, k, subpacket)
+    # Scenes with fewer than k leaves get narrower rows; pad to k ids.
+    row = jnp.pad(row, ((0, 0), (0, max(0, k + 1 - row.shape[1]))))
     cnt = row[:, 0]
     j = jnp.arange(k, dtype=jnp.int32)
     ids_leaf = row[:, 1:k + 1]
@@ -84,15 +84,14 @@ def candidate_sphere_ids(o: Array, d: Array, tables: CullTables,
 
     o/d: (Bp, 3) sorted+bucket-padded rays (tracer/core/sort.py
     prep_rays_bucketed). Returns (ids (P, K) i32 with -1 padding,
-    overflow () bool) where K = max_leaves * leaf_size. Single-chunk
-    tables only (the fit-scale scenes this backs fit one chunk).
+    overflow () bool) where K = max_leaves * leaf_size.
     """
-    assert tables.num_chunks == 1, "sparse soft expects single-chunk tables"
     ls = tables.leaf_size
     lpg = tables.leaves_per_group
     k = max_leaves
-    rows, overflow = leaf_candidates(o, d, tables, max_groups, k, subpacket)
-    row = rows[0]                                       # (P, rowlen)
+    row, overflow = leaf_candidates(o, d, tables, max_groups, k, subpacket)
+    # Scenes with fewer than k leaves get narrower rows; pad to k ids.
+    row = jnp.pad(row, ((0, 0), (0, max(0, k + 1 - row.shape[1]))))
     cnt = row[:, 0]
     P = row.shape[0]
 
@@ -217,11 +216,10 @@ def soft_render_sparse(scene: Scene, rays: Ray, tables: CullTables,
 # Fast sparse path: scalar-attr layout + top-M compositing
 # ---------------------------------------------------------------------------
 #
-# The exact path above materializes (P, SP, K, 3) vector intermediates; on
-# TPU any array with a minor dim of 3 pads to 128 lanes (~42x traffic), and
+# The exact path above materializes (P, SP, K, 3) vector intermediates, and
 # the K-wide sorted composite drags take_along gathers whose backward is an
-# elementwise scatter -- measured 2.2 s fwd+bwd for 16k rays at 100k
-# spheres. This path keeps every hot array 2-D (rays x candidates):
+# elementwise scatter. This path keeps every hot array 2-D (rays x
+# candidates):
 #
 #   1. candidate leaves gathered as whole (leaf_size)-wide attribute rows
 #      from slot-order tables (row gathers, row-scatter transposes);
@@ -260,8 +258,8 @@ def _sigma_t_scalar(cx, cy, cz, c2, r, ox, oy, oz, dx, dy, dz, od, oo, a,
     """sigma, t_soft, mirror.y for broadcastable scalar operand layouts --
     identical math to _sparse_logits, decomposed into products of scalars.
     mirror.y is computed here (in K-space) so the top-M stage needs no
-    gathers of the geometry attrs: each per-element take_along costs
-    ~30-50 ns on this chip and they dominated the forward pass."""
+    gathers of the geometry attrs: per-element take_along gathers
+    dominated the forward pass."""
     inva = 1.0 / jnp.maximum(a, 1e-30)
     ocd = cx * dx + cy * dy + cz * dz - od               # oc . d
     oc2 = c2 - 2.0 * (cx * ox + cy * oy + cz * oz) + oo  # |oc|^2
@@ -295,11 +293,10 @@ def soft_render_sparse_leaforder(scene: Scene, o: Array, d: Array,
     """Leaf-ordered sparse soft image: the round-5 fast differentiable path.
 
     Returns (img (Bp, 3), overflow). The top-M path above
-    (soft_render_sparse_fast) still spent ~95% of its time moving payload
-    for the per-ray selection: every take_along_axis (B, K) -> (B, M) is a
-    per-ELEMENT gather (~20-50 ns each on v5e) and its backward a
-    per-element scatter — seven of them, ~420 ms fwd+bwd at 131k rays.
-    This path removes per-ray selection entirely:
+    (soft_render_sparse_fast) spends most of its time moving payload for
+    the per-ray selection: every take_along_axis (B, K) -> (B, M) is a
+    per-element gather and its backward a per-element scatter, seven of
+    them. This path removes per-ray selection entirely:
 
       * candidate LEAVES (16 per subpacket) are sorted once per subpacket
         by the projection of their box center onto the packet's mean
@@ -385,7 +382,7 @@ def soft_render_sparse_fast(scene: Scene, o: Array, d: Array,
 
     Returns (img, overflow). Same model as soft_render_sparse_packets up
     to (a) top-M truncation of the composite (error <= sum of dropped
-    sigmas, ~1e-4 at the defaults) and (b) the TPU-optimized approximate
+    sigmas, ~1e-4 at the defaults) and (b) the approximate
     top-M selection (jax.lax.approx_max_k, recall ~= ``recall``).
     """
     if params is None:

@@ -1,8 +1,8 @@
 """Device-mesh construction: the framework's parallelism topology.
 
 The reference is single-threaded C with no distribution at all (SURVEY.md
-section 2, parallelism inventory); this module is where the TPU-native design
-adds it. Two mesh axes cover the framework's parallel strategies:
+section 2, parallelism inventory); this module is where this design adds
+it. Two mesh axes cover the framework's parallel strategies:
 
   * ``rays``  -- ray/tile data parallelism (the DP analog): the pixel/ray
     wavefront shards across devices, scene replicated. Embarrassingly
@@ -11,9 +11,11 @@ adds it. Two mesh axes cover the framework's parallel strategies:
     shard across devices and partial hits min-reduce across the axis (ring
     ppermute path in tracer/dist/ring.py) for scenes too large to replicate.
 
-On multi-host pods, call :func:`init_distributed` first (it wraps
+On several hosts, call :func:`init_distributed` first (it wraps
 ``jax.distributed.initialize``); meshes then span all global devices and XLA
-lowers collectives onto ICI/DCN.
+lowers collectives onto the interconnect (NCCL over NVLink between the GPUs
+of one host). Every GPU of a host reaches every other at the same rate, so
+the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -34,17 +36,18 @@ def init_distributed(coordinator_address: str = None,
                      num_processes: int = None,
                      process_id: int = None,
                      local_device_ids=None) -> int:
-    """Multi-host entry point: join the pod's process group.
+    """Multi-host entry point: join the cluster's process group.
 
-    Wraps ``jax.distributed.initialize`` -- the TPU-native slot where a GPU
-    framework would initialize NCCL/MPI (SURVEY.md section 5, distributed
-    communication backend). After this, ``jax.devices()`` spans the whole
-    pod and the meshes below lower collectives onto ICI (intra-slice) / DCN
-    (inter-slice) automatically.
+    Wraps ``jax.distributed.initialize`` (SURVEY.md section 5, distributed
+    communication backend). After this, ``jax.devices()`` spans every
+    process's devices and the meshes below lower collectives onto NCCL.
 
-    All arguments are optional: on Cloud TPU pods they auto-detect from the
-    metadata server; single-process runs (CI, one chip, CPU meshes) skip
-    initialization entirely. Idempotent. Returns the process count.
+    Nothing detects a cluster automatically here: give
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``, as arguments or as TRACER_COORDINATOR /
+    TRACER_NUM_PROCESSES. Single-process runs (CI, one GPU, one host's
+    GPUs, CPU meshes) skip initialization entirely. Idempotent. Returns the
+    process count.
     """
     global _DISTRIBUTED_INITIALIZED
     env_world = int(os.environ.get("TRACER_NUM_PROCESSES", "0")) or None
@@ -52,9 +55,8 @@ def init_distributed(coordinator_address: str = None,
     coordinator_address = coordinator_address or os.environ.get(
         "TRACER_COORDINATOR", None)
     # Initialize only when multi-process is explicitly configured (flags or
-    # TRACER_* env): ambient TPU env vars are not enough to decide, and a
-    # single-process run must stay a no-op (jax.distributed.initialize
-    # aborts if any backend already exists).
+    # TRACER_* env): a single-process run must stay a no-op
+    # (jax.distributed.initialize aborts if any backend already exists).
     single = coordinator_address is None and (num_processes or 1) == 1
     if not _DISTRIBUTED_INITIALIZED and not single:
         jax.distributed.initialize(

@@ -12,15 +12,14 @@ is ring attention's KV-rotation with the softmax-accumulate replaced by a
 
 After P steps every ray block has visited every shard and carries the global
 closest hit; blocks arrive back at their home device. Per-step compute
-overlaps the next permute under XLA's async collectives, and ICI carries the
-ray traffic (O(rays) per step, independent of scene size).
+overlaps the next permute under XLA's async collectives, and the interconnect
+carries the ray traffic (O(rays) per step, independent of scene size).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,13 +32,14 @@ from tracer.dist.mesh import SCENE_AXIS
 from tracer.intersect.sphere import ray_sphere_t, hit_record_from_t
 from tracer.intersect.traverse import traverse_flat
 from tracer.scene.scene import Scene
+from tracer.core import pytree
 
 # Finite "never hit" node-box padding: inverted boxes whose slab interval is
 # always empty (tmax < tmin), without inf arithmetic hazards.
 _PAD_BOX = 3.0e37
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class ShardedBVH:
     """Per-shard flat BVHs, stacked and padded to a common size.
 
@@ -59,8 +59,8 @@ class ShardedBVH:
     escape: Array
     leaf_start: Array
     prim_idx: Array
-    shard_size: int = flax.struct.field(pytree_node=False)
-    leaf_size: int = flax.struct.field(pytree_node=False)
+    shard_size: int = pytree.field(static=True)
+    leaf_size: int = pytree.field(static=True)
 
 
 def build_sharded_bvh(centers: np.ndarray, radii: np.ndarray,

@@ -4,7 +4,7 @@ This is the framework's "full training step" -- the analog of a DP x TP
 sharded model update:
 
   * ``rays`` axis (DP): rays and target pixels shard; every device computes
-    the loss on its ray shard; parameter gradients **psum over the ray axis**
+    the loss on its ray shard; parameter gradients **sum over the ray axis**
     (the gradient all-reduce).
   * ``scene`` axis (TP): sphere arrays shard; the ORDERED composite (the
     model the renderer actually ships, tracer/diff/soft.py
@@ -15,16 +15,16 @@ sharded model update:
     composite on the merged set. With K >= the per-ray overlap depth the
     sharded loss EQUALS the unsharded soft_render loss (tests assert
     this); dropped candidates have sigma below every shard's K-th value —
-    the same truncation class as the sparse single-chip paths. (Round
-    2-4 used a depth-softmax decomposition here; docs/PERF.md and
-    diff/soft.py record why that model was replaced — a near sphere with
-    microscopic coverage could outweigh a real hit — and VERDICT r4 task
-    5 demanded the trainer optimize the shipped model.)
+    the same truncation class as the sparse single-device paths. (An
+    earlier depth-softmax decomposition was replaced because a near sphere
+    with microscopic coverage could outweigh a real hit; diff/soft.py
+    records why. The trainer optimizes the model the renderer ships.)
     Parameters and optimizer state stay sharded; each device updates only
     its sphere shard.
 
-One jitted ``shard_map`` contains render + loss + backward + psum + optimizer
-update, so XLA schedules the collectives against compute (ICI-overlapped).
+One jitted ``shard_map`` contains render + loss + backward + gradient
+all-reduce + optimizer update, so XLA schedules the collectives against
+compute.
 """
 
 from __future__ import annotations
@@ -85,11 +85,15 @@ def make_train_step(mesh: Mesh, soft: SoftParams = None, lr: float = 1e-2,
             return jnp.mean((img - target) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn)(params)
-        # DP gradient all-reduce: sum ray-shard contributions (mean over
-        # shards since each local loss is a mean over its rays).
-        n = mesh.shape[RAY_AXIS]
-        grads = jax.lax.psum(
-            jax.tree_util.tree_map(lambda g: g / n, grads), RAY_AXIS)
+        # The gradient all-reduce is inside the backward pass: params are
+        # invariant over the ray axis, so autodiff sums their cotangents
+        # over it (the transpose of the implicit broadcast), and the
+        # all_gather's transpose sums the identical per-scene-device
+        # copies of the replicated loss's cotangent. Both sums count every
+        # device once; dividing by the device count leaves the gradient of
+        # the mean-over-ray-shards loss.
+        n = mesh.shape[RAY_AXIS] * mesh.shape[SCENE_AXIS]
+        grads = jax.tree_util.tree_map(lambda g: g / n, grads)
         # loss is already identical across scene shards (the all_gathered
         # candidate sets are); the pmean just proves replication to
         # shard_map's static checker (numerically a no-op).

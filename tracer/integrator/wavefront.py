@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import Array
@@ -36,6 +35,7 @@ from tracer.core import sampling
 from tracer.core.types import Ray, HitRecord
 from tracer.scene.camera import Camera, camera_rays
 from tracer.scene.scene import Scene
+from tracer.core import pytree
 
 # Reference sky gradient endpoints (src/renderer.c:65-70), in [0,1] scale.
 _SKY_HORIZON = (1.0, 1.0, 1.0)
@@ -73,7 +73,7 @@ def _compact_rays(rays: Ray, active: Array):
 
     Dead lanes are *parked* (origin far outside every scene, +x direction):
     the frustum cull then assigns their subpackets empty candidate lists and
-    the adaptive kernels skip them in O(1), which is the static-shape TPU
+    the adaptive kernels skip them in O(1), which is the static-shape
     analog of shrinking the batch. Returns (rays', inverse_permutation).
     """
     from tracer.core.sort import direction_morton_codes
@@ -226,7 +226,7 @@ def render_direct(scene: Scene, camera: Camera, light_pos,
     return jnp.clip(img, 0.0, 1.0)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Accumulator:
     """Temporal accumulation state: running sum + frame count.
 

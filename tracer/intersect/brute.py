@@ -2,9 +2,9 @@
 
 Reference: the ``bvh == NULL`` path of ``trace_ray`` (src/renderer.c:36-44), a
 per-ray linear scan. Here it is one dense (B, N) computation -- all rays vs
-all spheres -- reduced with argmin. Dense rank-2 elementwise work is exactly
-what the TPU VPU wants, so for small scenes this path is itself very fast; it
-doubles as the baseline side of the benchmark sweep (src/benchmark.c:172-223).
+all spheres -- reduced with argmin. For small scenes this path is itself
+fast; it doubles as the baseline side of the benchmark sweep
+(src/benchmark.c:172-223).
 
 Tie-breaking matches the reference: the scan keeps the first strictly-smaller
 t (src/renderer.c:38-42), and jnp.argmin also returns the first minimum.
@@ -50,8 +50,8 @@ def any_hit_brute(rays: Ray, scene: Scene, t_max) -> jnp.ndarray:
     The reference has no shadow rays (its renderer is bounce+sky only);
     this is the any-hit query BASELINE config 3 adds, defined as "a
     closest hit would exist with t < t_max" under the exact reference
-    acceptance rule (src/hit.c:19-39). Dense O(B*N); the production path
-    is tracer/kernels/leafcull.occluded_leafcull.
+    acceptance rule (src/hit.c:19-39). Dense O(B*N); the hierarchical
+    path is tracer/kernels/leafcull.occluded_leafcull.
     """
     o = rays.origin.reshape(-1, 1, 3)
     d = rays.direction.reshape(-1, 1, 3)
@@ -61,32 +61,29 @@ def any_hit_brute(rays: Ray, scene: Scene, t_max) -> jnp.ndarray:
 
 
 def brute_t_fast(o, d, centers, radii, block: int = 8192):
-    """(t, idx) closest hit, dense O(B*N) in a TPU-friendly layout.
+    """(t, idx) closest hit, dense O(B*N), scalar-decomposed.
 
-    The small-scene hot path (VERDICT r4 task 3): at n <= ~2k spheres the
-    hierarchical pipeline's fixed cost (sort + bucket + cull tables)
-    dwarfs the work it saves, while a dense scalar-decomposed sweep is
-    near-free on the VPU. Differences vs :func:`nearest_hit_brute`:
+    The small-scene path (tracer/intersect/select.py, "dense"): at a few
+    thousand spheres the hierarchical pipeline's fixed cost (sort + bucket
+    + cull tables) outweighs the work it saves. Differences vs
+    :func:`nearest_hit_brute`:
 
-      * per-sphere attributes are (1, N) ROWS (cx/cy/cz, |c|^2 - r^2) and
-        per-ray scalars (B', 1) COLUMNS, so every pairwise op is a
-        (B', N) broadcast on the (sublane, lane) tile — the (B, N, 3)
-        minor-3 intermediates of the naive form pad 3 -> 128 lanes;
+      * per-sphere attributes are (1, N) rows (cx, cy, cz, r^2) and per-ray
+        scalars (B', 1) columns, so every pairwise op is a (B', N)
+        broadcast with no (B, N, 3) intermediates;
       * rays are processed in ``block``-row chunks under ``lax.map`` so
         peak temporaries stay ~block*N*4 bytes;
-      * the quadratic is the kernels' u-form (u = oc.d + sqrt(disc),
-        t = -u/a — algebraically the reference's near root,
-        src/hit.c:19-39) so results match the Pallas paths bitwise and
-        brute to f32 rounding.
+      * the quadratic is the leaf-cull intersector's u-form (u = oc.d +
+        sqrt(disc), t = -u/a, the reference's near root, src/hit.c:19-39)
+        with the same cross-product discriminant as ray_sphere_t.
 
     Tie-break: equal t => equal u; argmax returns the first maximal lane,
     matching the reference's first-strictly-smaller scan.
     """
     import jax
 
-    n = centers.shape[0]
     cx, cy, cz = centers[:, 0][None], centers[:, 1][None], centers[:, 2][None]
-    ccr = (jnp.sum(centers * centers, axis=-1) - radii * radii)[None]
+    r2 = (radii * radii)[None]
 
     b = o.shape[0]
     pad = (-b) % block
@@ -98,16 +95,14 @@ def brute_t_fast(o, d, centers, radii, block: int = 8192):
 
     def one(args):
         ob, db = args
-        ox, oy, oz = ob[:, 0:1], ob[:, 1:2], ob[:, 2:3]
         dx, dy, dz = db[:, 0:1], db[:, 1:2], db[:, 2:3]
-        od = jnp.sum(ob * db, axis=-1, keepdims=True)
-        oo = jnp.sum(ob * ob, axis=-1, keepdims=True)
         a = jnp.sum(db * db, axis=-1, keepdims=True)
-        m1 = dx * cx + dy * cy + dz * cz              # c.d     (blk, N)
-        oc = ox * cx + oy * cy + oz * cz              # o.c     (blk, N)
-        bp = od - m1                                  # oc.d
-        cq = oo - 2.0 * oc + ccr                      # |oc|^2 - r^2
-        disc = bp * bp - a * cq
+        ocx, ocy, ocz = ob[:, 0:1] - cx, ob[:, 1:2] - cy, ob[:, 2:3] - cz
+        bp = ocx * dx + ocy * dy + ocz * dz           # oc.d     (blk, N)
+        crx = ocy * dz - ocz * dy                     # oc x d
+        cry = ocz * dx - ocx * dz
+        crz = ocx * dy - ocy * dx
+        disc = a * r2 - (crx * crx + cry * cry + crz * crz)
         u = bp + jnp.sqrt(jnp.maximum(disc, 0.0))
         from tracer.intersect.sphere import EPSILON
         ok = (disc > 0.0) & (u < -EPSILON * a)

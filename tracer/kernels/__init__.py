@@ -1,23 +1,19 @@
-from tracer.kernels.traverse_pallas import (
-    PackedBVH,
-    pack_bvh,
-    nearest_hit_bvh_pallas,
-)
 from tracer.kernels.leafcull import (
     CullTables,
     build_cull_tables,
+    nearest_hit_feats,
     nearest_hit_leafcull,
-    nearest_hit_leafcull_checked,
     nearest_hit_leafcull_t,
+    occluded_feats,
+    occluded_leafcull,
 )
 
 __all__ = [
-    "PackedBVH",
-    "pack_bvh",
-    "nearest_hit_bvh_pallas",
     "CullTables",
     "build_cull_tables",
+    "nearest_hit_feats",
     "nearest_hit_leafcull",
-    "nearest_hit_leafcull_checked",
     "nearest_hit_leafcull_t",
+    "occluded_feats",
+    "occluded_leafcull",
 ]

@@ -1,112 +1,100 @@
-"""Leaf-granular cull intersector: the round-2 hot path.
+"""Leaf-granular cull intersector: the hot path for closest hit and any hit.
 
-Fourth-generation TPU design for the reference's closest-hit query
-(``ray_bvh_intersect``, src/hit.c:91-109). The tile-cull kernel
-(tracer/kernels/tilecull.py) already removed all per-node scalar syncs, but
-its candidate unit is a 128-prim tile: a 128-ray cone that truly passes near
-~600 spheres still tested ~4000, because every touched leaf dragged in its
-whole tile. Measured on v5e at 100k spheres, that put phase B at VPU peak
-*and* 5x too much work.
+The reference answers a closest-hit query by walking the SAH BVH per ray
+(``ray_bvh_intersect``, src/hit.c:91-109). Here a query is two batched
+phases over *subpackets* of ``SP`` consecutive rays (rays are sorted by
+direction first, tracer/core/sort.py, so a subpacket is a thin frustum):
 
-This kernel shrinks the candidate unit to a single SAH **leaf (32 prims)**
-and keeps the dense-vector shape by assembling each (SP rays x 128 prims)
-test block out of **4 candidate leaves** selected by lane quarter:
+  * phase A (plain ``jnp``): each subpacket's interval bounds are tested
+    against the boxes of groups of ``leaves_per_group`` consecutive leaves,
+    then against the member-leaf boxes of the surviving groups. The result
+    is one candidate row per subpacket: ``[count, leaf ids...]`` in
+    ascending slot order, or, when the subpacket needs more leaves than
+    the row holds, ``[-count, group ids...]`` (group mode: walk every
+    member leaf). The default budgets (:func:`default_budgets`) make the
+    row as wide as the table has groups, so no row can overflow at any
+    scene size; smaller explicit budgets raise ``overflow`` wherever a
+    group row does not fit.
+  * phase B: every ray of the subpacket is tested against every prim of
+    its candidate leaves. Two implementations with one contract:
 
-  * prim table entries pack TWO adjacent leaves per (8, 128) block --
-    sublanes 0-3 hold leaf 2e's rows (cx, cy, cz, |c|^2-r^2), sublanes 4-7
-    leaf 2e+1's -- each leaf's 32 prims replicated 4x along lanes. The
-    replication is what makes assembly free: lane quarter q of the
-    assembled block reads leaf l_q's prims at full 128-lane occupancy with
-    three vector selects and zero shifts. 2 leaves/entry keeps the whole
-    100k-sphere table at 8.8 MB, inside the ~15 MB VMEM budget measured on
-    this chip (16 MB fails to compile).
-  * candidate lists are built hierarchically on the host-free jnp path
-    (phase A): a dense frustum test against ~L/16 coarse group boxes, then
-    a sparse per-subpacket refinement against only the surviving groups'
-    member leaves. This replaces tilecull's dense (subpackets x all-leaves)
-    test -- 45 ms of pure VPU time at 100k -- with ~1 ms of work.
-  * scenes whose table exceeds VMEM are **chunked** along the MAJOR grid
-    dimension: leaves are split into C equal chunks, phase A emits per-chunk
-    candidate rows, each (chunk, group) step writes its own partial output
-    block, and the wrapper min-merges the C partials in XLA. Chunk-major
-    order keeps each ~9 MB entries block resident across the whole inner
-    sweep (total table DMA = table size, not table x groups). This is how
-    1M+ spheres stay VMEM-resident per step.
+      - ``"triton"``: a Pallas kernel on the Triton route. One program per
+        subpacket keeps its rays in registers and loops over its own
+        candidate leaves, so a subpacket pays only for its own list.
+      - ``"xla"``: the plain version, a ``lax.while_loop`` over blocks of
+        ``LEAF_BLOCK`` candidate positions vectorised over all
+        subpackets (gather, fused quadratic test, max-reduce). It pays the
+        longest list's trip count for every subpacket.
 
-Ray coherence comes from octahedral-Morton direction sorting
-(tracer/core/sort.py): measured at 100k spheres / 64-ray subpackets it cuts
-the p95 candidate count from 322 leaves to 86.
+    ``"interpret"`` runs the Triton kernel body in Pallas's interpreter
+    (CPU tests).
 
-Number semantics match the reference acceptance rule exactly (disc > 0,
-near root only, t > EPSILON; src/hit.c:19-39) in f32; the wrapper recomputes
-the winning t with the exact brute-force formulation so any deviation is
-confined to measure-zero graze/tie flips (tests assert this, as for the
-other kernels).
+Prims live in one SoA table ``prims (4, L + 1, leaf_size)``: rows cx, cy,
+cz, r^2 per slot, with leaf ``L`` a sentinel that never hits. The
+quadratic is the reference acceptance rule (disc > 0, near root,
+t > EPSILON; src/hit.c:19-39) in f32 on the CUDA cores, with the
+discriminant as a r^2 - |oc x d|^2 like tracer/intersect/sphere.py: the
+test resolves r = 0.5 at |oc| ~ 500, which neither TF32 nor bf16 can.
+With u = oc.d + sqrt(disc) the near root is t = -u/a, so the closest hit
+is the largest valid u; ties go to the lowest slot.
 """
 
 from __future__ import annotations
 
 import functools
 
-import flax.struct
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import Array
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from tracer.bvh.flat import FlatBVH
+from tracer.core import pytree
 from tracer.core.types import Ray, HitRecord
-from tracer.bvh.flat import FlatBVH, padded_scene_arrays
 from tracer.intersect.sphere import ray_sphere_t, hit_record_from_t, EPSILON
 from tracer.scene.scene import Scene
 
-LANES = 128
-SUBLANES = 8
+FEAT = 16           # per-ray feature columns (10 used)
+LEAF_BLOCK = 16     # candidate positions per plain-walk iteration
+EXIT_EVERY = 4      # leaves per any-hit kernel step between exit checks
+#                     (1, 2, 4, 8 measured on H100: 4 fastest, PERF.md)
+IMPLS = ("triton", "interpret", "xla")
 _BIG = 3.0e38
 _NOSLOT = 2 ** 30
+_NEVER = -1.0       # r^2 of sentinel slots: disc < 0 for every ray
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class CullTables:
-    """Device tables for the leaf-cull kernel (build once per scene/BVH).
+    """Device tables of the leaf-cull intersector (build once per scene).
 
-    entries:  (C, Ec+1, 8, 128) f32 -- chunk c, entry e packs leaves
-              ``c*lpc + 2e`` (rows 0-3) and ``c*lpc + 2e+1`` (rows 4-7),
-              rows = (cx, cy, cz, |c|^2 - r^2), each leaf's ``leaf_size``
-              prims replicated along lanes. The last entry of every chunk
-              is a sentinel that can never hit (|c|^2 - r^2 = 1e30).
-    leaf_min/leaf_max: (L, 3) f32 leaf AABBs in slot order. Padding leaves
-              hold inverted boxes, but the symmetric interval slab test
-              accepts an inverted box as all-space, so phase A masks them
-              explicitly with ``num_real_leaves`` instead of relying on
-              the box values.
-    group_boxes: (Gc, lpg*8) f32 member-leaf boxes [lo3, hi3, 0, 0] flattened
-              along the row -- the phase A refine gathers WHOLE group rows
-              (one exactly-128-lane row for lpg=16) because TPU gather cost
-              is per-row (~2.7 ns) regardless of row width; per-leaf 8-lane
-              rows each pad to a 128-lane word and measured ~6x slower.
-    group_min/group_max: (Gc, 3) f32 boxes over ``leaves_per_group``
-              consecutive leaves (phase A dense level).
-    slot_to_sphere: (L*leaf_size,) i32 prim slot -> sphere id (-1 pad).
-    leaf_size / leaves_per_group / leaves_per_chunk / num_leaves: static.
+    prims:        (4, L + 1, leaf_size) f32 rows cx, cy, cz, r^2 in slot
+                  order; padding slots and the sentinel leaf ``L`` hold
+                  r^2 = -1 and can never hit.
+    leaf_min/max: (L, 3) leaf AABBs in slot order. Padding leaves hold
+                  inverted boxes, which the interval slab test would accept
+                  as all-space, so phase A masks them with
+                  ``num_real_leaves``.
+    group_boxes:  (G, 6 * lpg) member-leaf AABBs of each group, attribute
+                  major: [lpg lox | loy | loz | hix | hiy | hiz].
+    group_min/max: (G, 3) boxes over each group's ``leaves_per_group``
+                  consecutive leaves.
+    slot_to_sphere: (L * leaf_size,) i32 prim slot -> sphere id (-1 pad).
     """
 
-    entries: Array
+    prims: Array
     leaf_min: Array
     leaf_max: Array
     group_boxes: Array
     group_min: Array
     group_max: Array
     slot_to_sphere: Array
-    leaf_size: int = flax.struct.field(pytree_node=False)
-    leaves_per_group: int = flax.struct.field(pytree_node=False)
-    leaves_per_chunk: int = flax.struct.field(pytree_node=False)
-    num_leaves: int = flax.struct.field(pytree_node=False)
-    num_real_leaves: int = flax.struct.field(pytree_node=False)
-
-    @property
-    def num_chunks(self) -> int:
-        return self.entries.shape[0]
+    leaf_size: int = pytree.field(static=True)
+    leaves_per_group: int = pytree.field(static=True)
+    num_leaves: int = pytree.field(static=True)
+    num_real_leaves: int = pytree.field(static=True)
 
     @property
     def num_groups(self) -> int:
@@ -114,906 +102,605 @@ class CullTables:
 
 
 def build_cull_tables(scene: Scene, bvh: FlatBVH,
-                      leaves_per_group: int = 16,
-                      max_chunk_bytes: int = 9 << 20) -> CullTables:
-    """Build CullTables from a FlatBVH (jnp ops; call once per scene).
-
-    leaf_size must be even and divide 128 (32 is the sweet spot: finer
-    leaves shrink per-ray work but the pair-packed table must stay under
-    the VMEM budget, see module docstring).
-    """
+                      leaves_per_group: int = 16) -> CullTables:
+    """CullTables from a FlatBVH (host numpy for the leaf order, device
+    gathers for the prim table; call once per scene)."""
     ls = bvh.leaf_size
-    assert ls % 2 == 0 and LANES % ls == 0, "leaf_size must be even, divide 128"
-    assert LANES // ls >= 4, \
-        "leaf_size > 32 leaves lane quarters unfilled (kernel assembles 4)"
-    reps = LANES // ls
-
-    # --- leaf boxes in slot order (same scheme as intersect/cull.py) ---
-    import numpy as np
+    lpg = leaves_per_group
     leaf_start = np.asarray(bvh.leaf_start)
     node_min = np.asarray(bvh.node_min)
     node_max = np.asarray(bvh.node_max)
-    prim_idx_h = np.asarray(bvh.prim_idx)
-    n_spheres = scene.centers.shape[0]
+    prim_idx = np.asarray(bvh.prim_idx)
+    n = scene.centers.shape[0]
     is_leaf = leaf_start >= 0
     order = leaf_start[is_leaf] // ls
     # Padding leaves of the device LBVH (tracer/bvh/device.py) carry NaN
     # boxes and only sentinel prims; they must not count as real (a NaN
     # member would poison its whole group box below).
-    leaf_is_real = prim_idx_h[leaf_start[is_leaf]] < n_spheres
+    leaf_is_real = prim_idx[leaf_start[is_leaf]] < n
     num_real = int(leaf_is_real.sum())
     assert (order[leaf_is_real] < num_real).all(), \
         "real leaves must occupy the first slots"
     node_min = np.where(np.isnan(node_min), _BIG, node_min)
     node_max = np.where(np.isnan(node_max), -_BIG, node_max)
 
-    # Pad leaf count so chunks are equal, group-aligned, and pair-aligned.
-    lpg = leaves_per_group
-    assert lpg % 16 == 0, "leaves_per_group must be a multiple of 16"
-    align = max(lpg, 2)
-    leaves_per_chunk_cap = max((max_chunk_bytes // (SUBLANES * LANES * 4)) * 2
-                               - 2, align)
-    n_chunks = max(1, -(-num_real // leaves_per_chunk_cap))
-    if n_chunks > 1:
-        # Multi-chunk tables stream chunk blocks through Pallas's DOUBLE
-        # buffer (a single resident C=1 block is not double-buffered), so
-        # each chunk must fit half the ~14 MB usable VMEM.
-        bytes2 = min(max_chunk_bytes, 12 << 19)
-        cap2 = max((bytes2 // (SUBLANES * LANES * 4)) * 2 - 2, align)
-        n_chunks = max(1, -(-num_real // cap2))
-    lpc = -(-(-(-num_real // n_chunks)) // align) * align
-    L = n_chunks * lpc
-
+    L = max(-(-num_real // lpg), 1) * lpg
     lmin = np.full((L, 3), _BIG, np.float32)
     lmax = np.full((L, 3), -_BIG, np.float32)
-    # Only real leaves: device-LBVH padding leaves sit past num_real (and
-    # therefore past L when the chunk rounding is tight).
     lmin[order[leaf_is_real]] = node_min[is_leaf][leaf_is_real]
     lmax[order[leaf_is_real]] = node_max[is_leaf][leaf_is_real]
 
     gmin = lmin.reshape(-1, lpg, 3).min(1)
     gmax = lmax.reshape(-1, lpg, 3).max(1)
-    gboxes = np.zeros((L // lpg, lpg, 8), np.float32)
-    gboxes[:, :, 0:3] = lmin.reshape(-1, lpg, 3)
-    gboxes[:, :, 3:6] = lmax.reshape(-1, lpg, 3)
-    # Flat (Gc, lpg*8) rows: a gather row is then exactly lpg*8 lanes (128
-    # for lpg=16) instead of lpg separate 8-lane rows each padded to a full
-    # 128-lane word — measured 5.7 -> ~1 ms at 512k rays / 100k spheres.
-    gboxes = gboxes.reshape(L // lpg, lpg * 8)
+    gboxes = np.concatenate(
+        [lmin.reshape(-1, lpg, 3).transpose(0, 2, 1),
+         lmax.reshape(-1, lpg, 3).transpose(0, 2, 1)], axis=1)
+    gboxes = gboxes.reshape(L // lpg, 6 * lpg)
 
-    # --- slot -> sphere map, padded to L*ls ---
-    n = scene.centers.shape[0]
-    prim_idx = np.asarray(bvh.prim_idx)
+    # Real prims occupy the first num_real * ls slots; a device LBVH may
+    # carry sentinel-only padding leaves past them, which are dropped.
     slots = np.full(L * ls, n, np.int64)
-    # Real prims occupy the first num_real*ls slots; a device LBVH may
-    # carry extra sentinel-only padding leaves past L*ls — drop them.
     take = min(prim_idx.shape[0], L * ls)
     slots[:take] = prim_idx[:take]
 
-    # --- pair-packed, lane-replicated prim entries ---
-    if L * ls <= 32_000_000:
-        centers_p, radii_p = padded_scene_arrays(scene.centers, scene.radii)
-        sl = jnp.asarray(slots)
-        c = centers_p[sl]                                # (L*ls, 3)
-        r = radii_p[sl]
-        ccr = jnp.sum(c * c, axis=-1) - r * r
-        attrs = jnp.stack([c[:, 0], c[:, 1], c[:, 2], ccr])  # (4, L*ls)
-        attrs = attrs.reshape(4, L // 2, 2, ls).transpose(1, 2, 0, 3)
-        entries = attrs.reshape(L // 2, 8, ls)
-        entries = jnp.tile(entries, (1, 1, reps)).astype(jnp.float32)
-        entries = entries.reshape(n_chunks, lpc // 2, 8, LANES)
-        sentinel = jnp.zeros((n_chunks, 1, 8, LANES),
-                             jnp.float32).at[:, :, 3].set(1.0e30)
-        sentinel = sentinel.at[:, :, 7].set(1.0e30)
-        entries = jnp.concatenate([entries, sentinel], axis=1)
-    else:
-        # 100M-sphere scale: the device-side assembly's transpose/tile
-        # intermediates are several full table copies (table alone is
-        # 6.4 GB at 100M) and exhaust HBM; assemble on the HOST (125 GB
-        # RAM) and ship the finished table in one transfer. One-time
-        # build cost, identical layout.
-        from tracer.bvh.flat import SENTINEL_CENTER, SENTINEL_RADIUS
-        cn = np.asarray(scene.centers, np.float32)
-        rn = np.asarray(scene.radii, np.float32)
-        cn = np.concatenate(
-            [cn, np.full((1, 3), SENTINEL_CENTER, np.float32)])
-        rn = np.concatenate(
-            [rn, np.full((1,), SENTINEL_RADIUS, np.float32)])
-        c = cn[slots]
-        r = rn[slots]
-        with np.errstate(over="ignore"):   # sentinel rows overflow to inf
-            ccr = (c * c).sum(-1) - r * r
-        ent = np.empty((n_chunks, lpc // 2 + 1, 8, LANES), np.float32)
-        att = np.stack([c[:, 0], c[:, 1], c[:, 2], ccr])  # (4, L*ls)
-        att = att.reshape(4, L // 2, 2, ls).transpose(1, 2, 0, 3)
-        att = att.reshape(n_chunks, lpc // 2, 8, ls)
-        for rep in range(reps):
-            ent[:, :-1, :, rep * ls:(rep + 1) * ls] = att
-        ent[:, -1] = 0.0
-        ent[:, -1, 3] = 1.0e30
-        ent[:, -1, 7] = 1.0e30
-        entries = jnp.asarray(ent)
+    sl = jnp.asarray(np.minimum(slots, n - 1), jnp.int32)
+    pad = jnp.asarray(slots >= n)
+    c = jnp.where(pad[:, None], 0.0, scene.centers[sl])
+    r = scene.radii[sl]
+    r2 = jnp.where(pad, _NEVER, r * r)
+    prims = jnp.stack([c[:, 0], c[:, 1], c[:, 2], r2]).reshape(4, L, ls)
+    sentinel = jnp.zeros((4, 1, ls), jnp.float32).at[3].set(_NEVER)
+    prims = jnp.concatenate([prims.astype(jnp.float32), sentinel], axis=1)
 
-    slot_to_sphere = jnp.asarray(np.where(slots == n, -1, slots), jnp.int32)
     return CullTables(
-        entries=entries,
+        prims=prims,
         leaf_min=jnp.asarray(lmin), leaf_max=jnp.asarray(lmax),
         group_boxes=jnp.asarray(gboxes),
         group_min=jnp.asarray(gmin), group_max=jnp.asarray(gmax),
-        slot_to_sphere=slot_to_sphere,
-        leaf_size=ls, leaves_per_group=lpg, leaves_per_chunk=lpc,
-        num_leaves=L, num_real_leaves=num_real)
+        slot_to_sphere=jnp.asarray(np.where(slots == n, -1, slots),
+                                   jnp.int32),
+        leaf_size=ls, leaves_per_group=lpg, num_leaves=L,
+        num_real_leaves=num_real)
 
 
 # ---------------------------------------------------------------------------
-# Phase A: hierarchical frustum culling -> per-(subpacket, chunk) leaf rows
+# Ray features
 # ---------------------------------------------------------------------------
-#
-# Everything here is laid out AXIS-FIRST: coordinates ride the leading
-# (3,) axis so the big (P, M) pair arrays keep their large dims on the
-# (sublane, lane) tile. The naive (..., 3)-minor formulation pads 3 -> 128
-# lanes on TPU -- a measured ~30x inflation that made the first cut of this
-# phase cost more than the intersection kernel itself.
-
-def _interval_slab_hit_t(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi) -> Array:
-    """Conservative slab test of per-packet interval bounds vs boxes.
-
-    bounds: (3, P, 1); boxes: (3, 1|P, M). Returns (P, M) bool -- True
-    whenever ANY ray inside the bounds COULD satisfy the reference AABB
-    acceptance (tmax >= tmin && tmax > EPSILON, src/hit.c:81). Same
-    interval math as tracer/intersect/cull.py, generalized to per-packet
-    boxes and transposed layout.
-    """
-    big = 1.0e18
-    free = (d_lo <= 0.0) & (d_hi >= 0.0)
-    i_lo = 1.0 / jnp.where(free, 1.0, d_hi)
-    i_hi = 1.0 / jnp.where(free, 1.0, d_lo)
-
-    def imul(al, ah, bl, bh):
-        p1, p2, p3, p4 = al * bl, al * bh, ah * bl, ah * bh
-        return (jnp.minimum(jnp.minimum(p1, p2), jnp.minimum(p3, p4)),
-                jnp.maximum(jnp.maximum(p1, p2), jnp.maximum(p3, p4)))
-
-    n1_lo, n1_hi = box_lo - o_hi, box_lo - o_lo
-    n2_lo, n2_hi = box_hi - o_hi, box_hi - o_lo
-    t1_lo, t1_hi = imul(n1_lo, n1_hi, i_lo, i_hi)
-    t2_lo, t2_hi = imul(n2_lo, n2_hi, i_lo, i_hi)
-    tn = jnp.where(free, -big, jnp.minimum(t1_lo, t2_lo))
-    tf = jnp.where(free, big, jnp.maximum(t1_hi, t2_hi))
-    tnear = jnp.max(tn, axis=0)
-    tfar = jnp.min(tf, axis=0)
-    return (tfar >= tnear) & (tfar > EPSILON)
-
-
-def _compact_rows(mask: Array, ids: Array, k: int, sentinel: int,
-                  rowlen: int) -> tuple[Array, Array]:
-    """Stream-compact True ids (ascending) into count-embedded rows.
-
-    mask/ids: (P, M). Returns (rows (P, rowlen) i32 = [count, id0, ...]
-    sentinel-padded, raw per-row counts (P,) i32 -- possibly > k, the
-    embedded count is clamped). Sort-based: one XLA lane-axis sort, no
-    scatters (scatter-min compaction measured ~10x slower on v5e).
-    Requires k + 17 <= rowlen so a 16-wide kernel step can overread safely.
-    """
-    counts = mask.sum(-1, dtype=jnp.int32)
-    key = jnp.where(mask, ids, jnp.int32(sentinel))
-    cand = jax.lax.sort(key, dimension=1)[:, :k]
-    row = jnp.concatenate([jnp.minimum(counts, k)[:, None], cand], axis=1)
-    return jnp.pad(row, ((0, 0), (0, rowlen - k - 1)),
-                   constant_values=sentinel), counts
-
-
-def subpacket_bounds(o: Array, d: Array, subpacket: int):
-    """(B, 3) padded rays -> axis-first per-subpacket interval bounds,
-    four (3, P, 1) arrays."""
-    ot = o.T.reshape(3, -1, subpacket)
-    dt = d.T.reshape(3, -1, subpacket)
-    return (ot.min(2)[:, :, None], ot.max(2)[:, :, None],
-            dt.min(2)[:, :, None], dt.max(2)[:, :, None])
-
-
-def leaf_candidates(o: Array, d: Array, tables: CullTables,
-                    max_groups: int, max_candidates: int, subpacket: int):
-    """Hierarchical phase A.
-
-    o/d: padded (P*subpacket, 3) ray arrays (direction-sorted). Returns
-    (rows (P, C, rowlen) i32 per-chunk count-embedded RELATIVE leaf ids,
-    overflow () bool). rowlen is max_candidates rounded up so rows are a
-    whole number of 128-lane SMEM words.
-    """
-    lpg = tables.leaves_per_group
-    lpc = tables.leaves_per_chunk
-    C = tables.num_chunks
-    k0 = min(max_groups, tables.num_groups)
-    k = min(max_candidates, lpc)
-    rowlen = -(-(k + 17) // LANES) * LANES
-
-    o_lo, o_hi, d_lo, d_hi = subpacket_bounds(o, d, subpacket)
-    P = o_lo.shape[1]
-
-    # Dense level: frustum vs group boxes. Padding boxes are inverted, but
-    # the symmetric interval slab test accepts an inverted box as all-space
-    # (ADVICE r2), so padding groups/leaves are masked explicitly.
-    ghit = _interval_slab_hit_t(o_lo, o_hi, d_lo, d_hi,
-                                tables.group_min.T[:, None],
-                                tables.group_max.T[:, None])
-    real_group = (jnp.arange(tables.num_groups, dtype=jnp.int32) * lpg
-                  < tables.num_real_leaves)
-    ghit = ghit & real_group[None, :]
-    gids = jnp.broadcast_to(jnp.arange(tables.num_groups, dtype=jnp.int32),
-                            ghit.shape)
-    grow, gcounts = _compact_rows(ghit, gids, k0, tables.num_groups,
-                                  k0 + 9)
-    gcand = grow[:, 1:k0 + 1]                              # (P, k0)
-
-    # Sparse refine: member leaves of surviving groups only. Gather WHOLE
-    # group rows (one 512 B row per candidate group) -- TPU gather cost is
-    # per-row, so this is ~lpg*6 times cheaper than element gathers.
-    safe_g = jnp.minimum(gcand, tables.num_groups - 1)
-    boxes = tables.group_boxes[safe_g]                     # (P, k0, lpg*8)
-    boxes = boxes.reshape(P, k0 * lpg, 8)
-    bt = boxes.transpose(2, 0, 1)                          # (8, P, M)
-    member = (gcand[:, :, None] * lpg
-              + jnp.arange(lpg, dtype=jnp.int32)[None, None])  # (P, k0, lpg)
-    member = member.reshape(P, -1)
-    valid = member < tables.num_real_leaves
-    safe = jnp.where(valid, member, 0)
-    lhit = _interval_slab_hit_t(o_lo, o_hi, d_lo, d_hi,
-                                bt[0:3], bt[3:6]) & valid
-
-    # Per-chunk compaction to relative leaf ids, with a GROUP-MODE fallback
-    # per (subpacket, chunk): if the subpacket needs more leaves than the
-    # row budget (or its refine was truncated by the group budget k0), its
-    # row instead enumerates its surviving GROUPS (count stored negated) and
-    # the kernel walks every member leaf -- correctness never depends on
-    # the budgets, only the rare wide seam subpackets pay extra work.
-    #
-    # ONE global lane sort serves every chunk: ids sort ascending, so each
-    # chunk's candidates are a contiguous run whose bounds come from C+1
-    # threshold compare-reduces and whose rows are a take_along_axis. (A
-    # per-chunk _compact_rows sort measured ~8 ms x C at 1M spheres.)
-    gpc = lpc // lpg
-    kg = min(gpc, rowlen - 9)
-    refine_truncated = gcounts > k0                        # (P,)
-
-    def chunk_rows(mask, ids, sentinel, per_chunk, budget):
-        """mask/ids (P, M) -> (vals (P, C, budget) count-clamped ids
-        RELATIVE to their chunk, cnt (P, C) raw per-chunk counts)."""
-        M = ids.shape[1]
-        key = jnp.where(mask, ids, jnp.int32(sentinel))
-        skey = jax.lax.sort(key, dimension=1)
-        th = (jnp.arange(C + 1, dtype=jnp.int32) * per_chunk)[None, :, None]
-        bounds = jnp.sum(skey[:, None, :] < th, axis=2, dtype=jnp.int32)
-        start, cnt = bounds[:, :C], bounds[:, 1:] - bounds[:, :C]
-        j = jnp.arange(budget, dtype=jnp.int32)
-        idx = jnp.minimum(start[:, :, None] + j[None, None, :], M - 1)
-        vals = jnp.take_along_axis(
-            jnp.broadcast_to(skey[:, None, :], (P, C, M)), idx, axis=2)
-        base = (jnp.arange(C, dtype=jnp.int32) * per_chunk)[None, :, None]
-        vals = jnp.where(j[None, None, :] < jnp.minimum(cnt, budget)[..., None],
-                         vals - base, per_chunk)
-        return vals, cnt
-
-    lvals, lcnt = chunk_rows(lhit, member, C * lpc, lpc, k)
-    gvals, gcnt = chunk_rows(ghit, gids, C * gpc, gpc, kg)
-
-    use_g = (lcnt > k) | refine_truncated[:, None]          # (P, C)
-    overflow = jnp.any(use_g & (gcnt > kg))
-
-    pad = rowlen - 1 - max(k, kg)
-    cnt_col = jnp.where(use_g, -jnp.minimum(gcnt, kg), jnp.minimum(lcnt, k))
-    body = jnp.where(use_g[..., None],
-                     jnp.pad(gvals, ((0, 0), (0, 0), (0, max(k - kg, 0))),
-                             constant_values=gpc),
-                     jnp.pad(lvals, ((0, 0), (0, 0), (0, max(kg - k, 0))),
-                             constant_values=lpc))
-    rows = jnp.concatenate(
-        [cnt_col[..., None], body,
-         jnp.full((P, C, pad), lpc, jnp.int32)], axis=2)
-    # Chunk-major for the kernels' BlockSpec (see _leafcull_call).
-    return rows.transpose(1, 0, 2), overflow
-
-
-# ---------------------------------------------------------------------------
-# Phase B: the kernel
-# ---------------------------------------------------------------------------
-
-FEAT = 16  # per-ray feature lanes (11 used, padded to a power of two)
-
-
-def pack_ray_features(o: Array, d: Array, subpackets: int,
-                           subpacket: int, t_max: Array | None = None):
-    """(B, 3) rays -> (G, S, SP, FEAT) per-ray column operands.
-
-    Lanes 0-7 are the MXU operand row [dx, dy, dz, -2ox, -2oy, -2oz, 1, 0]:
-    the kernel contracts it against per-quad prim columns to get c.d and
-    -2 o.c + ccr in one (SP, 8) @ (8, 256) matmul. Lanes 8-12 are VPU
-    broadcast scalars [o.d, |o|^2, a, 1/a, eps*a]. Lane 13 is -a*t_max for
-    the any-hit (shadow) kernel's far clip (u > -a*t_max <=> t < t_max);
-    -BIG when no t_max is given, which every kernel but anyhit ignores.
-    One merged (SP, FEAT) plane per subpacket (instead of three (SP, 8)
-    planes) cuts the lane-padding inflation of the HBM feature array 3x
-    (the 16 -> 128 pad is paid once per subpacket).
-
-    Padding rays replicate the last real ray (coherent tail). Returns
-    (features, G, pad).
-    """
-    S, SP = subpackets, subpacket
-    b = o.shape[0]
-    step = S * SP
-    g = -(-b // step)
-    pad = g * step - b
-    o = jnp.pad(o, ((0, pad), (0, 0)), mode="edge")
-    d = jnp.pad(d, ((0, pad), (0, 0)), mode="edge")
-    if t_max is not None:
-        t_max = jnp.pad(t_max.reshape(-1), ((0, pad),), mode="edge")
-
-    feats = _feature_rows(o, d, t_max)                    # (B', FEAT)
-    return feats.reshape(g, S, SP, FEAT), g, pad
-
 
 def _feature_rows(o: Array, d: Array, t_max: Array | None = None) -> Array:
-    """(B, 3) rays -> (B, FEAT) f32 feature rows (see pack_ray_features)."""
+    """(B, 3) rays -> (B, FEAT) f32 feature rows.
+
+    Columns: [dx, dy, dz, ox, oy, oz, a, 1/a, EPSILON*a, -a*t_max, 0...]
+    with a = |d|^2. Column 9 is the any-hit far clip
+    (u > -a*t_max <=> t < t_max); -BIG when no t_max is given.
+    """
     zeros = jnp.zeros_like(o[:, 0])
-    ones = jnp.ones_like(o[:, 0])
-    od = jnp.sum(o * d, axis=-1)
-    oo = jnp.sum(o * o, axis=-1)
     a = jnp.sum(d * d, axis=-1)
     inva = 1.0 / jnp.maximum(a, 1e-30)
     if t_max is None:
         negat = jnp.full_like(a, -_BIG)
     else:
         negat = -a * t_max.reshape(-1)
-    cols = [d[:, 0], d[:, 1], d[:, 2],
-            -2.0 * o[:, 0], -2.0 * o[:, 1], -2.0 * o[:, 2],
-            ones, zeros,
-            od, oo, a, inva, EPSILON * a, negat]
+    cols = [d[:, 0], d[:, 1], d[:, 2], o[:, 0], o[:, 1], o[:, 2],
+            a, inva, EPSILON * a, negat]
     cols += [zeros] * (FEAT - len(cols))
     return jnp.stack(cols, axis=-1).astype(jnp.float32)
 
 
-def prep_feats_bucketed(o: Array, d: Array, subpackets: int, subpacket: int,
+def pack_ray_features(o: Array, d: Array, subpacket: int,
+                      t_max: Array | None = None) -> Array:
+    """(B, 3) rays in stream order -> (P, SP, FEAT) features.
+
+    The tail is padded by replicating the last ray (a coherent subpacket).
+    """
+    b = o.shape[0]
+    pad = (-b) % subpacket
+    if t_max is not None:
+        t_max = jnp.pad(jnp.reshape(t_max, (-1,)), ((0, pad),), mode="edge")
+    o = jnp.pad(o, ((0, pad), (0, 0)), mode="edge")
+    d = jnp.pad(d, ((0, pad), (0, 0)), mode="edge")
+    return _feature_rows(o, d, t_max).reshape(-1, subpacket, FEAT)
+
+
+def prep_feats_bucketed(o: Array, d: Array, subpacket: int,
                         cell_bits: int = 8, t_max: Array | None = None):
-    """Fused cull-kernel pre-pass: sort + bucket-pad + feature pack with
-    the ray permutation applied ONCE, as a (bp, FEAT) row gather.
+    """Sort + cell-bucket pad + feature pack in one pass.
 
-    The round-4 pipeline materialized the padded rays as two (bp, 3)
-    arrays and re-read them in pack_ray_features; minor-dim-3 arrays tile
-    3 -> 128 lanes on TPU, so that detour wrote ~42x the useful bytes and
-    measured 12.7 ms at 512k rays where this fused form measures 8.2
-    (tools/profile_r5c.py variants A vs C). Feature rows are computed in
-    ORIGINAL ray order (dense, cheap), then gathered straight into the
-    (G, S, SP, FEAT) kernel operand layout.
-
-    Returns (feats, dest): dest (B,) i32 maps each input ray to its slot
-    in the PADDED stream (apply conecull.kernel_order_dest for the raw
-    kernel output order).
+    Rays are sorted by octahedral direction code and padded at the
+    boundaries of 2^cell_bits direction cells (tracer/core/sort.py
+    plan_bucket_pad), so no subpacket straddles two cells. Feature rows
+    are computed in input order and gathered once into the subpacket
+    layout. Returns (feats (P, SP, FEAT), dest (B,) i32): ray i's result
+    is at flat index dest[i] of the (P * SP,) outputs.
     """
     from tracer.core.sort import octahedral_codes, plan_bucket_pad
 
-    S, SP = subpackets, subpacket
     b = o.shape[0]
     codes = octahedral_codes(d)
     iota = jnp.arange(b, dtype=jnp.int32)
     sc, perm = jax.lax.sort((codes, iota), dimension=0, num_keys=1)
-    src, dest_sorted = plan_bucket_pad(sc, SP, cell_bits=cell_bits)
-    idx = perm[src]
-    # Invert by a second 2-operand sort (~1 ms at 512k) — cheaper than the
-    # i32 scatter XLA emits for .at[perm].set.
+    src, dest_sorted = plan_bucket_pad(sc, subpacket, cell_bits=cell_bits)
+    # Invert the permutation with a second two-operand sort.
     _, dest = jax.lax.sort((perm, dest_sorted), dimension=0, num_keys=1)
-
-    table = _feature_rows(o, d, t_max)                    # (B, FEAT)
-    feats = table[idx]                                    # (bp, FEAT)
-    bp = feats.shape[0]
-    step = S * SP
-    tail = (-bp) % step
+    feats = _feature_rows(o, d, t_max)[perm[src]]
+    tail = (-feats.shape[0]) % subpacket
     if tail:
         feats = jnp.pad(feats, ((0, tail), (0, 0)), mode="edge")
-    return feats.reshape(-1, S, SP, FEAT), dest
+    return feats.reshape(-1, subpacket, FEAT), dest
 
 
-def _leafcull_kernel(cand_ref, rays_ref, entries_ref, t_ref, slot_ref, *,
-                     subpackets: int, subpacket: int, leaf_size: int,
-                     leaves_per_chunk: int, leaves_per_group: int,
-                     multi_chunk: bool = False):
-    """Grid (C, G), chunk-MAJOR. One step: ``subpackets`` frustums each walk
-    their chunk-c candidate leaves, 4 per iteration, assembled into a full
-    128-lane block by lane-quarter select; each (c, g) step writes its own
-    partial (SP, S) output block and the wrapper min-merges over chunks in
-    XLA. Chunk-major keeps the big entries block resident across the whole
-    inner G sweep — the earlier chunk-minor revisited-output design
-    re-streamed the entire table every step (33 GB of DMA per call at 1M
-    spheres)."""
-    SP = subpacket
+# ---------------------------------------------------------------------------
+# Phase A: hierarchical frustum culling -> one candidate row per subpacket
+# ---------------------------------------------------------------------------
+
+def subpacket_bounds(o: Array, d: Array, subpacket: int):
+    """(P*SP, 3) rays -> per-subpacket interval bounds, four (P, 3)."""
+    ot = o.reshape(-1, subpacket, 3)
+    dt = d.reshape(-1, subpacket, 3)
+    return ot.min(1), ot.max(1), dt.min(1), dt.max(1)
+
+
+def bounds_from_feats(feats: Array):
+    """(P, SP, FEAT) features -> per-subpacket interval bounds, four
+    (P, 3): columns 0-2 hold d, 3-5 hold o."""
+    lo = feats.min(axis=1)
+    hi = feats.max(axis=1)
+    return lo[:, 3:6], hi[:, 3:6], lo[:, 0:3], hi[:, 0:3]
+
+
+def _slab_hit(o_lo, o_hi, d_lo, d_hi, blo, bhi) -> Array:
+    """Conservative interval slab test of subpacket bounds against boxes.
+
+    o_lo/o_hi/d_lo/d_hi: (P, 3). blo/bhi: 3-tuples of (1|P, M) box
+    coordinates. Returns (P, M) bool: True whenever ANY ray inside the
+    bounds COULD satisfy the reference AABB acceptance
+    (tmax >= tmin && tmax > EPSILON, src/hit.c:81).
+    """
+    big = 1.0e18
+    tnear, tfar = None, None
+    for a in range(3):
+        dl, dh = d_lo[:, a:a + 1], d_hi[:, a:a + 1]
+        ol, oh = o_lo[:, a:a + 1], o_hi[:, a:a + 1]
+        free = (dl <= 0.0) & (dh >= 0.0)
+        i_lo = 1.0 / jnp.where(free, 1.0, dh)
+        i_hi = 1.0 / jnp.where(free, 1.0, dl)
+
+        def imul(al, ah, bl, bh):
+            p1, p2, p3, p4 = al * bl, al * bh, ah * bl, ah * bh
+            return (jnp.minimum(jnp.minimum(p1, p2), jnp.minimum(p3, p4)),
+                    jnp.maximum(jnp.maximum(p1, p2), jnp.maximum(p3, p4)))
+
+        t1_lo, t1_hi = imul(blo[a] - oh, blo[a] - ol, i_lo, i_hi)
+        t2_lo, t2_hi = imul(bhi[a] - oh, bhi[a] - ol, i_lo, i_hi)
+        tn = jnp.where(free, -big, jnp.minimum(t1_lo, t2_lo))
+        tf = jnp.where(free, big, jnp.maximum(t1_hi, t2_hi))
+        tnear = tn if tnear is None else jnp.maximum(tnear, tn)
+        tfar = tf if tfar is None else jnp.minimum(tfar, tf)
+    return (tfar >= tnear) & (tfar > EPSILON)
+
+
+def compact_rows(mask: Array, ids: Array, keep: int, sentinel: int):
+    """Stream-compact masked ids into per-row prefixes.
+
+    mask/ids: (P, M), ids ascending along each row. Returns (prefix (P, keep)
+    i32 ascending, sentinel-padded; counts (P,) i32, the full survivor
+    count, possibly > keep). Each survivor's slot is its inclusive
+    prefix-sum rank minus one; survivors past ``keep`` are dropped by the
+    scatter.
+    """
+    P = mask.shape[0]
+    pos = jnp.cumsum(mask, axis=1, dtype=jnp.int32) - 1
+    tgt = jnp.where(mask, pos, keep)
+    rows = jnp.broadcast_to(jnp.arange(P, dtype=jnp.int32)[:, None],
+                            mask.shape)
+    prefix = jnp.full((P, keep), sentinel, jnp.int32).at[rows, tgt].set(
+        ids.astype(jnp.int32), mode="drop", unique_indices=True)
+    return prefix, pos[:, -1] + 1
+
+
+def default_budgets(tables: CullTables) -> tuple[int, int]:
+    """(max_groups, max_candidates) under which no row overflows.
+
+    A row holds ``max(119, G)`` ids, so a group-mode row always has room
+    for every group of the table. The refine takes G / 4 surviving groups,
+    kept within [64, 1024]: on H100 that was the fastest of 64 / 256 /
+    1024 at 100k, 1M and 10M spheres (PERF.md).
+    """
+    G = tables.num_groups
+    return min(1024, max(64, G // 4)), max(119, G)
+
+
+def candidate_rows(bounds, tables: CullTables, max_groups: int | None = None,
+                   max_candidates: int | None = None):
+    """Phase A: per-subpacket bounds -> (rows (P, 1 + W) i32, overflow).
+
+    rows[p] = [count, ids...]: ``count >= 0`` lists that many candidate
+    leaf ids; ``count < 0`` lists ``-count`` candidate group ids (group
+    mode). Ids ascend, so walking a row visits slots in ascending order.
+    A row holds W = min(max_candidates, L) ids of either kind; ``overflow``
+    is True where a group-mode row needed more. Budgets left as None take
+    :func:`default_budgets`, which cannot overflow.
+    """
+    o_lo, o_hi, d_lo, d_hi = bounds
+    lpg = tables.leaves_per_group
+    G = tables.num_groups
+    L = tables.num_leaves
+    mg, mc = default_budgets(tables)
+    k0 = min(mg if max_groups is None else max_groups, G)
+    k = min(mc if max_candidates is None else max_candidates, L)
+    kg = min(G, k)
+    P = o_lo.shape[0]
+
+    # Dense level: slab test against every group box. Padding groups have
+    # inverted boxes (accepted as all-space), so they are masked.
+    ghit = _slab_hit(o_lo, o_hi, d_lo, d_hi,
+                     tuple(tables.group_min[None, :, a] for a in range(3)),
+                     tuple(tables.group_max[None, :, a] for a in range(3)))
+    gids = jnp.arange(G, dtype=jnp.int32)
+    ghit = ghit & (gids * lpg < tables.num_real_leaves)[None, :]
+    gprefix, gtotal = compact_rows(ghit, jnp.broadcast_to(gids, ghit.shape),
+                                   max(k0, kg), G)
+    gcand = gprefix[:, :k0]
+
+    # Refine: member-leaf boxes of the first k0 surviving groups, gathered
+    # as whole attribute-major group rows.
+    boxes = tables.group_boxes[jnp.minimum(gcand, G - 1)]  # (P, k0, 6*lpg)
+    att = [boxes[:, :, a * lpg:(a + 1) * lpg].reshape(P, -1)
+           for a in range(6)]
+    member = (gcand[:, :, None] * lpg
+              + jnp.arange(lpg, dtype=jnp.int32)[None, None]).reshape(P, -1)
+    lhit = _slab_hit(o_lo, o_hi, d_lo, d_hi, tuple(att[0:3]),
+                     tuple(att[3:6])) & (member < tables.num_real_leaves)
+    lprefix, ltotal = compact_rows(lhit, member, k, L)
+
+    # Group mode where the leaf list does not fit, or the refine saw only
+    # part of the surviving groups.
+    use_g = (ltotal > k) | (gtotal > k0)
+    overflow = jnp.any(use_g & (gtotal > kg))
+    count = jnp.where(use_g, -jnp.minimum(gtotal, kg), ltotal)
+    body = jnp.where(
+        use_g[:, None],
+        jnp.pad(gprefix[:, :kg], ((0, 0), (0, k - kg)), constant_values=G),
+        lprefix)
+    return jnp.concatenate([count[:, None], body], axis=1), overflow
+
+
+def leaf_candidates(o: Array, d: Array, tables: CullTables,
+                    max_groups: int | None, max_candidates: int | None,
+                    subpacket: int):
+    """Phase A from (P*SP, 3) ray arrays (see :func:`candidate_rows`)."""
+    return candidate_rows(subpacket_bounds(o, d, subpacket), tables,
+                          max_groups, max_candidates)
+
+
+def row_leaf_count(rows: Array, lpg: int) -> Array:
+    """Leaves a row walks: ``count`` in leaf mode, ``-count * lpg`` in
+    group mode."""
+    c = rows[:, 0]
+    return jnp.where(c >= 0, c, -c * lpg)
+
+
+# ---------------------------------------------------------------------------
+# Phase B, plain version
+# ---------------------------------------------------------------------------
+
+def _quadratic(dx, dy, dz, ox, oy, oz, a, cx, cy, cz, r2):
+    """Ray columns x prim rows -> (u, disc): disc = a r^2 - |oc x d|^2,
+    u = oc.d + sqrt(disc); a valid near root is t = -u/a."""
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    crx = ocy * dz - ocz * dy
+    cry = ocz * dx - ocx * dz
+    crz = ocx * dy - ocy * dx
+    disc = a * r2 - (crx * crx + cry * cry + crz * crz)
+    u = ocx * dx + ocy * dy + ocz * dz + jnp.sqrt(jnp.maximum(disc, 0.0))
+    return u, disc
+
+
+def _block_leaf_ids(rows: Array, j0, lpg: int, sentinel: int) -> Array:
+    """(P, LEAF_BLOCK) leaf ids at candidate positions j0 .. j0 + 15;
+    positions past a row's count read the sentinel leaf."""
+    c = rows[:, 0:1]
+    j = j0 + jnp.arange(LEAF_BLOCK, dtype=jnp.int32)[None, :]
+    idx = jnp.where(c >= 0, 1 + j, 1 + j // lpg)
+    e = jnp.take_along_axis(rows, jnp.minimum(idx, rows.shape[1] - 1),
+                            axis=1)
+    leaf = jnp.where(c >= 0, e, e * lpg + j % lpg)
+    return jnp.where(j < row_leaf_count(rows, lpg)[:, None], leaf, sentinel)
+
+
+def _plain_walk(feats: Array, rows: Array, tables: CullTables, anyhit: bool):
+    """Plain phase B over all subpackets at once."""
+    ls = tables.leaf_size
+    L = tables.num_leaves
+    P, SP, _ = feats.shape
+    f = [feats[..., k][..., None] for k in range(FEAT)]     # (P, SP, 1)
+    dx, dy, dz, ox, oy, oz = f[0:6]
+    av, epsa, negat = f[6], f[8], f[9]
+    iters = (jnp.max(row_leaf_count(rows, tables.leaves_per_group))
+             + LEAF_BLOCK - 1) // LEAF_BLOCK
+    lane = jnp.arange(ls, dtype=jnp.int32)
+    # Carries derived from feats keep its varying axes under shard_map.
+    zero = feats[..., 0] * 0.0                                # (P, SP)
+
+    def block(j):
+        leaf = _block_leaf_ids(rows, j * LEAF_BLOCK, tables.leaves_per_group,
+                               L)                               # (P, 16)
+        pr = tables.prims[:, leaf].reshape(4, P, 1, LEAF_BLOCK * ls)
+        u, disc = _quadratic(dx, dy, dz, ox, oy, oz, av, *pr)
+        ok = (disc > 0.0) & (u < -epsa)                         # (P, SP, 16ls)
+        slot = (leaf[:, :, None] * ls + lane).reshape(P, 1, -1)
+        return u, ok, slot
+
+    if anyhit:
+        def cond(c):
+            j, occ = c
+            return (j < iters) & ~jnp.all(occ)
+
+        def body(c):
+            j, occ = c
+            u, ok, _ = block(j)
+            return j + 1, occ | jnp.any(ok & (u > negat), axis=-1)
+
+        _, occ = jax.lax.while_loop(cond, body, (jnp.int32(0), zero > 0.0))
+        return occ
+
+    def body(j, c):
+        ub, ib = c
+        u, ok, slot = block(j)
+        uv = jnp.where(ok, u, -_BIG)
+        bmax = jnp.max(uv, axis=-1)
+        bslot = jnp.min(jnp.where(ok & (uv == bmax[..., None]), slot,
+                                  _NOSLOT), axis=-1)
+        # Blocks visit slots in ascending order: a tie keeps the earlier.
+        better = bmax > ub
+        return jnp.where(better, bmax, ub), jnp.where(better, bslot, ib)
+
+    ub, ib = jax.lax.fori_loop(
+        0, iters, body, (zero - _BIG, zero.astype(jnp.int32) + _NOSLOT))
+    return -ub * feats[..., 7], ib
+
+
+# ---------------------------------------------------------------------------
+# Phase B, Triton-route kernel
+# ---------------------------------------------------------------------------
+
+def _hit_kernel(rows_ref, feats_ref, prims_ref, *out_refs, leaf_size: int,
+                leaves_per_group: int, num_leaves: int, anyhit: bool):
+    """One program = one subpacket: its SP rays stay in registers while it
+    walks its own candidate leaves, one leaf (leaf_size prims) per step,
+    carrying an elementwise (SP, leaf_size) running best. The any-hit walk
+    tests EXIT_EVERY leaves per step and stops once every ray is occluded
+    (the check is a block reduction, so not after every leaf)."""
     ls = leaf_size
-    LPG = leaves_per_group
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-    quarter = lane // ls                                  # 0..reps-1 pattern
-    lane_mod = lane % ls
-    c = pl.program_id(0)
+    lpg = leaves_per_group
+    p = pl.program_id(0)
 
-    chunk_slot0 = c * leaves_per_chunk * ls               # scalar
+    def col(k):
+        return feats_ref[:, k][:, None]                       # (SP, 1)
 
-    # Multi-chunk sweeps: most (chunk, subpacket) candidate rows are EMPTY
-    # (a subpacket's corridor touches a handful of the C leaf ranges), but
-    # every (c, g) step still paid the full per-subpacket epilogue -- ~86 ms
-    # of reductions over nothing at 1M spheres (C=14). Skip whole steps and
-    # individual subpackets whose rows are empty; C == 1 keeps the
-    # branch-free body (pad subpackets are rare there).
-    if multi_chunk:
-        ncs = [cand_ref[0, 0, s, 0] for s in range(subpackets)]
-        any_work = ncs[0] != 0
-        for s in range(1, subpackets):
-            any_work = any_work | (ncs[s] != 0)
+    dx, dy, dz = col(0), col(1), col(2)
+    ox, oy, oz = col(3), col(4), col(5)
+    av, epsa = col(6), col(8)
+    sp = dx.shape[0]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (1, ls), 1)
+    count = rows_ref[p, 0]
+    n = jnp.where(count >= 0, count, -count * lpg)
 
-        @pl.when(jnp.logical_not(any_work))
-        def _():
-            t_ref[0, 0] = jnp.full((SP, subpackets), _BIG, jnp.float32)
-            slot_ref[0, 0] = jnp.full((SP, subpackets), _NOSLOT, jnp.int32)
+    def leaf_at(i):
+        # lax.div / lax.rem: i >= 0, and jnp's floor-division sign fix-up
+        # does not lower on the Triton route.
+        g = jax.lax.div(i, jnp.int32(lpg))
+        e = rows_ref[p, jnp.where(count >= 0, 1 + i, 1 + g)]
+        return jnp.where(count >= 0, e,
+                         e * lpg + jax.lax.rem(i, jnp.int32(lpg)))
 
-        @pl.when(any_work)
-        def _():
-            _leafcull_step(cand_ref, rays_ref, entries_ref, t_ref, slot_ref,
-                           subpackets, subpacket, leaf_size,
-                           leaves_per_chunk, leaves_per_group,
-                           quarter, lane_mod, chunk_slot0, True)
+    def test(leaf):
+        u, disc = _quadratic(dx, dy, dz, ox, oy, oz, av,
+                             *(prims_ref[k, leaf, :][None, :]
+                               for k in range(4)))          # (SP, ls)
+        return u, (disc > 0.0) & (u < -epsa)
+
+    if anyhit:
+        (occ_ref,) = out_refs
+        negat = col(9)
+
+        def cond(c):
+            i, _, done = c
+            return (i < n) & (done == 0)
+
+        def body(c):
+            i, occ, _ = c
+            for k in range(EXIT_EVERY):
+                # Positions past the row's end read the sentinel leaf.
+                j = i + k
+                leaf = jnp.where(j < n, leaf_at(jnp.minimum(j, n - 1)),
+                                 num_leaves)
+                u, ok = test(leaf)
+                occ = jnp.maximum(occ, (ok & (u > negat)).astype(jnp.int32))
+            done = jnp.min(jnp.max(occ, axis=1))
+            return i + EXIT_EVERY, occ, done
+
+        _, occ, _ = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), jnp.zeros((sp, ls), jnp.int32),
+                         jnp.int32(0)))
+        occ_ref[...] = jnp.max(occ, axis=1)
+        return
+
+    t_ref, slot_ref = out_refs
+
+    def body(i, c):
+        ub, ib = c
+        leaf = leaf_at(i)
+        u, ok = test(leaf)
+        ok = ok & (u > ub)
+        return jnp.where(ok, u, ub), jnp.where(ok, leaf * ls + lane, ib)
+
+    ub, ib = jax.lax.fori_loop(
+        0, n, body, (jnp.full((sp, ls), -_BIG, jnp.float32),
+                     jnp.full((sp, ls), _NOSLOT, jnp.int32)))
+    umax = jnp.max(ub, axis=1)
+    slot_ref[...] = jnp.min(jnp.where(ub == umax[:, None], ib, _NOSLOT),
+                            axis=1)
+    t_ref[...] = -umax * feats_ref[:, 7]
+
+
+def _kernel_walk(feats: Array, rows: Array, tables: CullTables, anyhit: bool,
+                 interpret: bool):
+    P, SP, _ = feats.shape
+    # 16 elements of the (SP, leaf_size) carry per thread: at 32 the kernel
+    # runs 3x slower on H100 (PERF.md); stages 1-3 measured alike.
+    num_warps = max(1, SP * tables.leaf_size // (32 * 16))
+    kernel = functools.partial(_hit_kernel, leaf_size=tables.leaf_size,
+                               leaves_per_group=tables.leaves_per_group,
+                               num_leaves=tables.num_leaves, anyhit=anyhit)
+    out_spec = pl.BlockSpec((None, SP), lambda p: (p, 0))
+    # Under shard_map the outputs vary over whatever mesh axes the inputs do.
+    vma = frozenset().union(*(jax.typeof(x).vma
+                              for x in (feats, rows, tables.prims)))
+    out = functools.partial(jax.ShapeDtypeStruct, (P, SP), vma=vma)
+    if anyhit:
+        out_shape = out(jnp.int32)
+        out_specs = out_spec
     else:
-        _leafcull_step(cand_ref, rays_ref, entries_ref, t_ref, slot_ref,
-                       subpackets, subpacket, leaf_size,
-                       leaves_per_chunk, leaves_per_group,
-                       quarter, lane_mod, chunk_slot0, False)
-
-
-def _leafcull_step(cand_ref, rays_ref, entries_ref, t_ref, slot_ref,
-                   subpackets, subpacket, leaf_size, leaves_per_chunk,
-                   leaves_per_group, quarter, lane_mod, chunk_slot0,
-                   skip_empty):
-    SP = subpacket
-    ls = leaf_size
-    LPG = leaves_per_group
-    t_cols = []
-    slot_cols = []
-    for s in range(subpackets):
-        f = rays_ref[0, s]                                # (SP, FEAT)
-        dx, dy, dz = f[:, 0:1], f[:, 1:2], f[:, 2:3]      # (SP, 1) columns
-        nox2, noy2, noz2 = f[:, 3:4], f[:, 4:5], f[:, 5:6]
-        od, oo = f[:, 8:9], f[:, 9:10]
-        av, inva = f[:, 10:11], f[:, 11:12]
-        epsa = f[:, 12:13]
-        nc = cand_ref[0, 0, s, 0]
-
-        def test_quad(parts, lids, carry):
-            """One assembled (SP, 128) block: 4 leaves by lane quarter.
-            parts: four (4, 128) attr blocks; lids: four scalar leaf ids."""
-            ub, ib = carry
-            A = jnp.where(quarter % 4 < 2,
-                          jnp.where(quarter % 4 == 0, parts[0], parts[1]),
-                          jnp.where(quarter % 4 == 2, parts[2], parts[3]))
-            cx, cy, cz, ccr = A[0:1], A[1:2], A[2:3], A[3:4]   # (1, 128)
-            lid = jnp.where(
-                quarter % 4 < 2,
-                jnp.where(quarter % 4 == 0, lids[0], lids[1]),
-                jnp.where(quarter % 4 == 2, lids[2], lids[3]))  # (1, 128)
-            pslot = chunk_slot0 + lid * ls + lane_mod     # global prim slot
-
-            # (SP ray columns) x (128 prim rows): pure f32 VPU broadcasts.
-            # An MXU (SP, 8) @ (8, 256) formulation of m1/m2 was tried and
-            # measured SLOWER (30.1 vs 21.9 ms at 512k rays): the disc
-            # sign test resolves r^2 = 0.25 against |c|^2 ~ 1e6, so the
-            # matmul needs Precision.HIGHEST (6 bf16 passes), which costs
-            # more than the 11 VPU ops it replaces at K=8.
-            m1 = dx * cx + dy * cy + dz * cz              # c.d
-            m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr  # -2 o.c + ccr
-            bp = od - m1                                  # oc.d
-            cq = m2 + oo                                  # |oc|^2 - r^2
-            disc = bp * bp - av * cq
-            # t = (-bp - sqrt(disc))/a, u := bp + sqrt(disc), so t = -u/a.
-            # Valid hits (t > EPS <=> u < -EPS*a) have u < 0; the smallest
-            # t is the LARGEST u (closest to zero from below).
-            u = bp + jnp.sqrt(jnp.maximum(disc, 0.0))
-            ok = (disc > 0.0) & (u < -epsa) & (u > ub)
-            ub = jnp.where(ok, u, ub)
-            ib = jnp.where(ok, pslot, ib)
-            return ub, ib
-
-        def load_leaf(l):
-            """Relative leaf id -> ((4, 128) attr block, id)."""
-            e = entries_ref[0, l // 2]                    # (8, 128)
-            return jax.lax.select(l % 2 == 0, e[0:4], e[4:8]), l
-
-        init = (jnp.full((SP, LANES), -_BIG, jnp.float32),
-                jnp.full((SP, LANES), _NOSLOT, jnp.int32))
-
-        def leaf_walk(nc=nc, s=s):
-            # Enumerated candidate leaves, 16 per iteration (4 quads): a
-            # fori_loop iteration carries ~300-450 ns of fixed overhead on
-            # v5e regardless of body size (round-4 micro benches), so wider
-            # bodies amortize it; 4 independent quad chains also give the
-            # VLIW scheduler slack to overlap the scalar-addressed loads.
-            def body(j, carry, s=s):
-                loads = [load_leaf(cand_ref[0, 0, s, 1 + 16 * j + q])
-                         for q in range(16)]
-                for h in range(4):
-                    carry = test_quad([p for p, _ in loads[4*h:4*h+4]],
-                                      [l for _, l in loads[4*h:4*h+4]],
-                                      carry)
-                return carry
-            return jax.lax.fori_loop(0, (nc + 15) // 16, body, init)
-
-        def group_walk(nc=nc, s=s):
-            # Overflow fallback: the row holds candidate GROUP ids (count
-            # = -ng); walk every member leaf. Members are consecutive, so
-            # one iteration = 16 leaves = 8 consecutive entries (same
-            # 16-wide amortization as the leaf walk).
-            qpg = LPG // 16                               # iterations/group
-            def body(j, carry, s=s):
-                g = cand_ref[0, 0, s, 1 + j // qpg]
-                base = g * LPG + (j % qpg) * 16
-                e0 = base // 2
-                for h in range(4):
-                    parts = [entries_ref[0, e0 + 2 * h][0:4],
-                             entries_ref[0, e0 + 2 * h][4:8],
-                             entries_ref[0, e0 + 2 * h + 1][0:4],
-                             entries_ref[0, e0 + 2 * h + 1][4:8]]
-                    lids = [base + 4 * h + q for q in range(4)]
-                    carry = test_quad(parts, lids, carry)
-                return carry
-            return jax.lax.fori_loop(0, -nc * qpg, body, init)
-
-        def full_cols(nc=nc, inva=inva, group_walk=group_walk,
-                      leaf_walk=leaf_walk):
-            ub, ib = jax.lax.cond(nc < 0, group_walk, leaf_walk)
-            umax = jnp.max(ub, axis=1, keepdims=True)     # (SP, 1)
-            win = (ub == umax) & (ib < _NOSLOT)
-            slot = jnp.min(jnp.where(win, ib, _NOSLOT), axis=1,
-                           keepdims=True)
-            return -umax * inva, slot                     # t = -u / a
-
-        if skip_empty:
-            tcol, slot = jax.lax.cond(
-                nc == 0,
-                lambda: (jnp.full((SP, 1), _BIG, jnp.float32),
-                         jnp.full((SP, 1), _NOSLOT, jnp.int32)),
-                full_cols)
-        else:
-            tcol, slot = full_cols()
-        t_cols.append(tcol)
-        slot_cols.append(slot)
-
-    t_ref[0, 0] = jnp.concatenate(t_cols, axis=1)         # (SP, S)
-    slot_ref[0, 0] = jnp.concatenate(slot_cols, axis=1)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "subpackets", "subpacket", "leaf_size", "leaves_per_chunk",
-    "leaves_per_group", "interpret"))
-def _leafcull_call(feats: Array, cand: Array, entries: Array,
-                   subpackets: int, subpacket: int, leaf_size: int,
-                   leaves_per_chunk: int, leaves_per_group: int,
-                   interpret: bool = False):
-    g = feats.shape[0]
-    C = entries.shape[0]
-    S, SP = subpackets, subpacket
-    rowlen = cand.shape[-1]
-    kernel = functools.partial(
-        _leafcull_kernel, subpackets=S, subpacket=SP, leaf_size=leaf_size,
-        leaves_per_chunk=leaves_per_chunk, leaves_per_group=leaves_per_group,
-        multi_chunk=(C > 1))
-    t_c, slot_c = pl.pallas_call(
+        out_shape = (out(jnp.float32), out(jnp.int32))
+        out_specs = (out_spec, out_spec)
+    out = pl.pallas_call(
         kernel,
-        grid=(C, g),
-        in_specs=[
-            # rows arrive chunk-major (C, g, S, rowlen): the last two
-            # block dims must stay (S, rowlen) to satisfy the Pallas
-            # (8, 128)-divisibility rule at C > 1.
-            pl.BlockSpec((1, 1, S, rowlen), lambda c, i: (c, i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, S, SP, FEAT), lambda c, i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1,) + entries.shape[1:], lambda c, i: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, SP, S), lambda c, i: (c, i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, SP, S), lambda c, i: (c, i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((C, g, SP, S), jnp.float32),
-            jax.ShapeDtypeStruct((C, g, SP, S), jnp.int32),
-        ),
+        grid=(P,),
+        in_specs=[pl.no_block_spec,
+                  pl.BlockSpec((None, SP, FEAT), lambda p: (p, 0, 0)),
+                  pl.no_block_spec],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(cand, feats, entries)
-    if C == 1:
-        return t_c[0], slot_c[0]
-    # Min-merge the per-chunk partials. argmin picks the FIRST minimal
-    # entry, i.e. the lowest chunk on exact ties — chunks ascend in slot
-    # order, matching brute force's first-hit tie-break.
-    tm = jnp.where(slot_c < _NOSLOT, t_c, _BIG)
-    ci = jnp.argmin(tm, axis=0)[None]                     # (1, g, SP, S)
-    t = jnp.take_along_axis(t_c, ci, axis=0)[0]
-    slot = jnp.take_along_axis(slot_c, ci, axis=0)[0]
-    return t, slot
+        name="leafcull_anyhit" if anyhit else "leafcull_closest",
+    )(rows, feats, tables.prims)
+    return out > 0 if anyhit else out
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "max_groups", "max_candidates", "subpackets", "subpacket", "interpret"))
+def phase_b(feats: Array, rows: Array, tables: CullTables, impl: str,
+            anyhit: bool = False):
+    """Phase B dispatch. Closest hit: (t (P, SP) from the kernel's own
+    quadratic, slot (P, SP) with 2^30 on miss). Any hit: occluded (P, SP)
+    bool (features must carry t_max)."""
+    if impl == "xla":
+        return _plain_walk(feats, rows, tables, anyhit)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown phase-B impl {impl!r}; one of {IMPLS}")
+    return _kernel_walk(feats, rows, tables, anyhit,
+                        interpret=(impl == "interpret"))
+
+
+# ---------------------------------------------------------------------------
+# Queries
+# ---------------------------------------------------------------------------
+
+def _resolve(impl):
+    if impl is None:
+        from tracer.intersect.select import hierarchical_impl
+        return hierarchical_impl()
+    return impl
+
+
+_STATIC = ("max_groups", "max_candidates", "impl")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def nearest_hit_feats(feats: Array, tables: CullTables,
+                      max_groups: int | None = None,
+                      max_candidates: int | None = None,
+                      impl: str | None = None):
+    """Closest hit from prebuilt (P, SP, FEAT) features, flat stream order:
+    (t (P*SP,) +inf on miss, slot (P*SP,) -1 on miss, overflow). Map slots
+    to sphere ids with ``tables.slot_to_sphere``. ``overflow`` is False
+    under the default budgets (see :func:`candidate_rows`)."""
+    rows, overflow = candidate_rows(bounds_from_feats(feats), tables,
+                                    max_groups, max_candidates)
+    t, slot = phase_b(feats, rows, tables, _resolve(impl))
+    t, slot = t.reshape(-1), slot.reshape(-1)
+    hit = slot < _NOSLOT
+    return jnp.where(hit, t, jnp.inf), jnp.where(hit, slot, -1), overflow
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def occluded_feats(feats: Array, tables: CullTables,
+                   max_groups: int | None = None,
+                   max_candidates: int | None = None,
+                   impl: str | None = None):
+    """Any hit from prebuilt features packed with a finite ``t_max``:
+    (occluded (P*SP,) bool in flat stream order, overflow)."""
+    rows, overflow = candidate_rows(bounds_from_feats(feats), tables,
+                                    max_groups, max_candidates)
+    occ = phase_b(feats, rows, tables, _resolve(impl), anyhit=True)
+    return occ.reshape(-1), overflow
+
+
+_STATIC_RAYS = _STATIC + ("subpacket",)
+
+
+def _query_feats(rays: Ray, subpacket: int, t_max=None) -> Array:
+    return pack_ray_features(rays.origin.reshape(-1, 3),
+                             rays.direction.reshape(-1, 3), subpacket,
+                             t_max=t_max)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC_RAYS)
 def nearest_hit_leafcull_t(rays: Ray, tables: CullTables,
-                           max_groups: int = 48, max_candidates: int = 119,
-                           subpackets: int = 8, subpacket: int = 64,
-                           interpret: bool = False):
-    """Lite closest-hit: (t, sphere_id, overflow) straight from the kernel.
-
-    Skips the full HitRecord epilogue (point/normal reconstruction and the
-    exact-brute t recomputation) — measured at 21 ms for 557k rays, pure
-    gather cost, vs ~2 ms for this path. t comes from the kernel's own
-    quadratic (same f32 acceptance rule as src/hit.c:19-39; matches brute
-    to ~1e-4 rtol, tie-breaks identically). Use for throughput benchmarks
-    and any caller that reconstructs shading inputs lazily from
-    (t, sphere_id) after compaction.
-    """
-    batch_shape = rays.batch_shape
-    o = rays.origin.reshape(-1, 3)
-    d = rays.direction.reshape(-1, 3)
-    b = o.shape[0]
-
-    feats, g, pad = pack_ray_features(o, d, subpackets, subpacket)
-    op = jnp.pad(o, ((0, pad), (0, 0)), mode="edge")
-    dp = jnp.pad(d, ((0, pad), (0, 0)), mode="edge")
-    rows, overflow = leaf_candidates(op, dp, tables, max_groups,
-                                     max_candidates, subpacket)
-    rows = rows.reshape(tables.num_chunks, g, subpackets, rows.shape[-1])
-
-    t_k, slot = _leafcull_call(feats, rows, tables.entries, subpackets,
-                               subpacket, tables.leaf_size,
-                               tables.leaves_per_chunk,
-                               tables.leaves_per_group, interpret=interpret)
-    slot = slot.transpose(0, 2, 1).reshape(-1)[:b]
-    t_k = t_k.transpose(0, 2, 1).reshape(-1)[:b]
-
-    hit = slot < _NOSLOT
-    sphere_id = jnp.where(
-        hit, tables.slot_to_sphere[jnp.where(hit, slot, 0)], -1)
-    t = jnp.where(hit, t_k, jnp.inf)
-    return (t.reshape(batch_shape), sphere_id.reshape(batch_shape), overflow)
+                           max_groups: int | None = None,
+                           max_candidates: int | None = None,
+                           subpacket: int = 64, impl: str | None = None):
+    """Lite closest hit: (t, sphere_id, overflow) in the rays' batch shape.
+    t comes from the kernel's own quadratic (matches the exact reference
+    formulation to ~1e-4 rtol). Rays should be direction-sorted."""
+    t, slot, overflow = nearest_hit_feats(_query_feats(rays, subpacket),
+                                          tables, max_groups, max_candidates,
+                                          impl)
+    b = rays.origin.reshape(-1, 3).shape[0]
+    t, slot = t[:b], slot[:b]
+    sphere_id = jnp.where(slot >= 0,
+                          tables.slot_to_sphere[jnp.maximum(slot, 0)], -1)
+    return (t.reshape(rays.batch_shape), sphere_id.reshape(rays.batch_shape),
+            overflow)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "max_groups", "max_candidates", "subpackets", "subpacket", "interpret"))
+@functools.partial(jax.jit, static_argnames=_STATIC_RAYS)
 def nearest_hit_leafcull(rays: Ray, scene: Scene, tables: CullTables,
-                         max_groups: int = 48, max_candidates: int = 119,
-                         subpackets: int = 8, subpacket: int = 64,
-                         interpret: bool = False):
-    """Closest hit via hierarchical frustum cull + leaf-assembled VPU tests.
+                         max_groups: int | None = None,
+                         max_candidates: int | None = None,
+                         subpacket: int = 64, impl: str | None = None):
+    """Closest hit as a HitRecord: ``(HitRecord, overflow)``.
 
-    Rays should be pre-sorted (tracer/core/sort.py sort_rays_octahedral).
-    Returns ``(HitRecord, overflow)``; on overflow re-dispatch with larger
-    budgets (``nearest_hit_leafcull_checked`` automates this).
+    t is recomputed from the winning sphere with the exact reference
+    formulation, so gradients flow to the scene like the brute path.
+    Rays should be direction-sorted for tight frustums.
     """
-    batch_shape = rays.batch_shape
+    _, sphere_id, overflow = nearest_hit_leafcull_t(
+        rays, tables, max_groups, max_candidates, subpacket, impl)
     o = rays.origin.reshape(-1, 3)
     d = rays.direction.reshape(-1, 3)
-    b = o.shape[0]
-
-    feats, g, pad = pack_ray_features(o, d, subpackets, subpacket)
-    op = jnp.pad(o, ((0, pad), (0, 0)), mode="edge")
-    dp = jnp.pad(d, ((0, pad), (0, 0)), mode="edge")
-    rows, overflow = leaf_candidates(op, dp, tables, max_groups,
-                                     max_candidates, subpacket)
-    rows = rows.reshape(tables.num_chunks, g, subpackets, rows.shape[-1])
-
-    t_k, slot = _leafcull_call(feats, rows, tables.entries, subpackets,
-                               subpacket, tables.leaf_size,
-                               tables.leaves_per_chunk,
-                               tables.leaves_per_group, interpret=interpret)
-    # (G, SP, S): ray g*S*SP + s*SP + r sits at [g, r, s].
-    slot = slot.transpose(0, 2, 1).reshape(-1)[:b]
-
-    hit = slot < _NOSLOT
-    sphere_id = jnp.where(
-        hit, tables.slot_to_sphere[jnp.where(hit, slot, 0)], -1)
-
-    # Differentiable recomputation of t from the argmin id (piecewise
-    # constant) with the exact brute-force formulation.
-    safe = jnp.maximum(sphere_id, 0)
+    sid = sphere_id.reshape(-1)
+    safe = jnp.maximum(sid, 0)
     t = ray_sphere_t(o, d, scene.centers[safe], scene.radii[safe])
-    t = jnp.where(sphere_id >= 0, t, jnp.inf)
-    rec = hit_record_from_t(Ray(origin=o, direction=d), t, sphere_id,
+    t = jnp.where(sid >= 0, t, jnp.inf)
+    rec = hit_record_from_t(Ray(origin=o, direction=d), t, sid,
                             scene.centers)
     rec = jax.tree_util.tree_map(
-        lambda x: x.reshape(*batch_shape, *x.shape[1:]), rec)
+        lambda x: x.reshape(*rays.batch_shape, *x.shape[1:]), rec)
     return rec, overflow
 
 
-def _anyhit_kernel(cand_ref, rays_ref, entries_ref, occ_ref, *,
-                   subpackets: int, subpacket: int, leaf_size: int,
-                   leaves_per_chunk: int, leaves_per_group: int,
-                   multi_chunk: bool = False):
-    """Any-hit (shadow/occlusion) variant of ``_leafcull_kernel``.
-
-    BASELINE config 3's shadow query: does ANY prim satisfy the reference
-    acceptance rule (disc > 0, near root, t > EPSILON; src/hit.c:19-39)
-    with t < t_max? Differences from the closest-hit kernel:
-
-      * no argmin epilogue — the per-subpacket result is one boolean
-        column, folded with max instead of (umax, winning slot);
-      * the far clip t < t_max rides feature lane 13 as -a*t_max
-        (u > -a*t_max <=> t < t_max, both sides negated by a > 0);
-      * the walk EARLY-EXITS once every ray of the subpacket is occluded
-        (a while_loop on ``not all occluded``): a shadow query in a dense
-        scene typically terminates in 1-2 iterations, where closest-hit
-        must always walk every candidate.
-    """
-    SP = subpacket
-    ls = leaf_size
-    LPG = leaves_per_group
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-    quarter = lane // ls
-    lane_mod = lane % ls
-    c = pl.program_id(0)
-    chunk_slot0 = c * leaves_per_chunk * ls
-
-    occ_cols = []
-    for s in range(subpackets):
-        f = rays_ref[0, s]                                # (SP, FEAT)
-        dx, dy, dz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
-        nox2, noy2, noz2 = f[:, 3:4], f[:, 4:5], f[:, 5:6]
-        od, oo = f[:, 8:9], f[:, 9:10]
-        av = f[:, 10:11]
-        epsa = f[:, 12:13]
-        negat = f[:, 13:14]
-        nc = cand_ref[0, 0, s, 0]
-
-        def test_quad(parts, occ):
-            A = jnp.where(quarter % 4 < 2,
-                          jnp.where(quarter % 4 == 0, parts[0], parts[1]),
-                          jnp.where(quarter % 4 == 2, parts[2], parts[3]))
-            cx, cy, cz, ccr = A[0:1], A[1:2], A[2:3], A[3:4]
-            m1 = dx * cx + dy * cy + dz * cz
-            m2 = nox2 * cx + noy2 * cy + noz2 * cz + ccr
-            bp = od - m1
-            cq = m2 + oo
-            disc = bp * bp - av * cq
-            u = bp + jnp.sqrt(jnp.maximum(disc, 0.0))
-            ok = (disc > 0.0) & (u < -epsa) & (u > negat)
-            # i32 masks throughout: Mosaic's i1 vector support is partial
-            # (no concat, no loop carries observed working), i32 is safe.
-            return occ | ok.astype(jnp.int32)
-
-        init = jnp.zeros((SP, LANES), jnp.int32)
-
-        def leaf_walk(nc=nc, s=s):
-            def cond(carry):
-                j, occ, done = carry
-                return (j < (nc + 15) // 16) & (done == 0)
-
-            def body(carry, s=s):
-                j, occ, done = carry
-                parts = []
-                for q in range(16):
-                    lid = cand_ref[0, 0, s, 1 + 16 * j + q]
-                    e = entries_ref[0, lid // 2]
-                    parts.append(jax.lax.select(lid % 2 == 0, e[0:4],
-                                                e[4:8]))
-                for h in range(4):
-                    occ = test_quad(parts[4 * h:4 * h + 4], occ)
-                # Early exit when every ray row has an occluded lane.
-                done = (jnp.min(jnp.max(occ, axis=1)) > 0).astype(jnp.int32)
-                return j + 1, occ, done
-
-            out = jax.lax.while_loop(cond, body, (jnp.int32(0), init,
-                                                  jnp.int32(0)))
-            return out[1]
-
-        def group_walk(nc=nc, s=s):
-            qpg = LPG // 16
-            def body(j, occ, s=s):
-                g = cand_ref[0, 0, s, 1 + j // qpg]
-                base = g * LPG + (j % qpg) * 16
-                e0 = base // 2
-                for h in range(4):
-                    parts = [entries_ref[0, e0 + 2 * h][0:4],
-                             entries_ref[0, e0 + 2 * h][4:8],
-                             entries_ref[0, e0 + 2 * h + 1][0:4],
-                             entries_ref[0, e0 + 2 * h + 1][4:8]]
-                    occ = test_quad(parts, occ)
-                return occ
-            return jax.lax.fori_loop(0, -nc * qpg, body, init)
-
-        def full_col(nc=nc):
-            occ = jax.lax.cond(nc < 0, group_walk, leaf_walk)
-            return jnp.max(occ, axis=1, keepdims=True)     # (SP, 1) i32
-
-        if multi_chunk:
-            col = jax.lax.cond(
-                nc == 0, lambda: jnp.zeros((SP, 1), jnp.int32), full_col)
-        else:
-            col = full_col()
-        occ_cols.append(col)
-
-    occ_ref[0, 0] = jnp.concatenate(occ_cols, axis=1)      # (SP, S)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "subpackets", "subpacket", "leaf_size", "leaves_per_chunk",
-    "leaves_per_group", "interpret"))
-def _anyhit_call(feats: Array, cand: Array, entries: Array,
-                 subpackets: int, subpacket: int, leaf_size: int,
-                 leaves_per_chunk: int, leaves_per_group: int,
-                 interpret: bool = False):
-    g = feats.shape[0]
-    C = entries.shape[0]
-    S, SP = subpackets, subpacket
-    rowlen = cand.shape[-1]
-    kernel = functools.partial(
-        _anyhit_kernel, subpackets=S, subpacket=SP, leaf_size=leaf_size,
-        leaves_per_chunk=leaves_per_chunk, leaves_per_group=leaves_per_group,
-        multi_chunk=(C > 1))
-    occ_c = pl.pallas_call(
-        kernel,
-        grid=(C, g),
-        in_specs=[
-            pl.BlockSpec((1, 1, S, rowlen), lambda c, i: (c, i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, S, SP, FEAT), lambda c, i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1,) + entries.shape[1:], lambda c, i: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 1, SP, S), lambda c, i: (c, i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, g, SP, S), jnp.int32),
-        interpret=interpret,
-    )(cand, feats, entries)
-    return jnp.max(occ_c, axis=0)                          # OR over chunks
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "max_groups", "max_candidates", "subpackets", "subpacket", "interpret"))
+@functools.partial(jax.jit, static_argnames=_STATIC_RAYS)
 def occluded_leafcull(rays: Ray, tables: CullTables, t_max: Array,
-                      max_groups: int = 48, max_candidates: int = 119,
-                      subpackets: int = 8, subpacket: int = 64,
-                      interpret: bool = False):
-    """Shadow/occlusion query: (occluded (batch,) bool, overflow).
+                      max_groups: int | None = None,
+                      max_candidates: int | None = None,
+                      subpacket: int = 64, impl: str | None = None):
+    """Shadow query: (occluded, overflow). True where a prim blocks the
+    segment (EPSILON, t_max) under the reference acceptance rule."""
+    occ, overflow = occluded_feats(_query_feats(rays, subpacket, t_max),
+                                   tables, max_groups, max_candidates, impl)
+    b = rays.origin.reshape(-1, 3).shape[0]
+    return occ[:b].reshape(rays.batch_shape), overflow
 
-    True where any prim blocks the ray segment (EPSILON, t_max) under the
-    reference acceptance rule. Rays should be pre-sorted for packet
-    coherence like the closest-hit path (tracer/core/sort.py).
-    """
-    batch_shape = rays.batch_shape
-    o = rays.origin.reshape(-1, 3)
-    d = rays.direction.reshape(-1, 3)
-    b = o.shape[0]
-
-    feats, g, pad = pack_ray_features(o, d, subpackets, subpacket,
-                                      t_max=t_max)
-    op = jnp.pad(o, ((0, pad), (0, 0)), mode="edge")
-    dp = jnp.pad(d, ((0, pad), (0, 0)), mode="edge")
-    rows, overflow = leaf_candidates(op, dp, tables, max_groups,
-                                     max_candidates, subpacket)
-    rows = rows.reshape(tables.num_chunks, g, subpackets, rows.shape[-1])
-    occ = _anyhit_call(feats, rows, tables.entries, subpackets, subpacket,
-                       tables.leaf_size, tables.leaves_per_chunk,
-                       tables.leaves_per_group, interpret=interpret)
-    occ = occ.transpose(0, 2, 1).reshape(-1)[:b] > 0
-    return occ.reshape(batch_shape), overflow
-
-
-def nearest_hit_leafcull_checked(rays: Ray, scene: Scene, tables: CullTables,
-                                 max_groups: int = 48,
-                                 max_candidates: int = 119,
-                                 subpackets: int = 8, subpacket: int = 64,
-                                 interpret: bool = False) -> HitRecord:
-    """Escalating driver: doubles both candidate budgets until no subpacket
-    overflows (each budget pair is a separate compiled specialization)."""
-    k0, k = max_groups, max_candidates
-    while True:
-        rec, overflow = nearest_hit_leafcull(
-            rays, scene, tables, max_groups=k0, max_candidates=k,
-            subpackets=subpackets, subpacket=subpacket, interpret=interpret)
-        done = (k0 >= tables.num_groups) and (k >= tables.leaves_per_chunk)
-        if not bool(overflow) or done:
-            return rec
-        k0 = min(2 * k0, tables.num_groups)
-        k = min(2 * k, tables.leaves_per_chunk)

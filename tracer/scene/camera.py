@@ -7,23 +7,23 @@ is a minimal pytree ``{position, yaw, pitch, fov}`` and the basis is derived
 plain autodiff -- a requirement of the inverse-rendering path.
 
 Ray generation produces the whole W x H wavefront in one broadcasted op: the
-TPU-native replacement for the per-pixel double loop at src/main.c:358-374.
+batched replacement for the per-pixel double loop at src/main.c:358-374.
 """
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 from jax import Array
 
 from tracer.config import TracerConfig, DEFAULT_CONFIG
 from tracer.core import vecmath
 from tracer.core.types import Ray
+from tracer.core import pytree
 
 _WORLD_UP = (0.0, 1.0, 0.0)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Camera:
     """Fly-camera pose; all fields are differentiable scalars/vectors.
 

@@ -16,13 +16,13 @@ Factories mirror the reference's three constructors:
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import Array
+from tracer.core import pytree
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Scene:
     """SoA sphere scene; the differentiable parameter pytree.
 
